@@ -1,19 +1,33 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--blocks N] [--seed S]
+    python3 chip_smoke.py [--blocks N] [--sale-blocks N] [--seed S]
 
 Phases, one line each as it finishes:
   1. the device: name, torch and CUDA versions, nvidia-smi name and
      power limit;
-  2. the build of the hand-written kernels (csrc/*.cu, one nvcc call);
+  2. the build of the hand-written kernels (csrc/*.cu, one nvcc per
+     source, all started together, then one link);
   3. each kernel against its plain torch twin on the card, exactly equal,
-     at the main path's shapes, with times (CUDA events) and bounds;
-  4. a small reference: the toy Groth16 circuit of tests/test_groth16.py
+     at the main path's shapes, with times (CUDA events) and bounds; K4
+     and the tensor-core kernels K5a-K5c also equal to K1/K2/K3 on the
+     same inputs;
+  4. a 256-point G1 MSM on the card against the exact host sum;
+  5. a small reference: the toy Groth16 circuit of tests/test_groth16.py
      proves to the JAX package's pinned golden bytes;
-  5. the slice: ZkEncryption at N blocks (default 49,152) — compile
-     (setup), encrypt + prove, verify, decrypt, and a tampered input that
-     must be rejected — with every kernel's launch count on that path.
+  6. the Proof of Encryption in the default configuration: ZkEncryption
+     at N blocks (default 49,152) — compile (setup), encrypt + prove,
+     verify, decrypt, and a tampered input that must be rejected — with
+     K1-K3's launch counts on that path;
+  7. the whole sale under ZKCP_MXU=1 (the tensor-core configuration) at
+     N blocks (default 65,536): compile the three circuits, seller step 0
+     (PoE + SampleEntries proof), buyer step 0 (verify, with the device
+     Poseidon Merkle root), step 1 (key encryption), step 2 (adaptor
+     signature), step 3 (broadcast on MockChain), step 4 (recover the key,
+     decrypt), over the local HTTP server and client, every proof real
+     Groth16; the plaintext must come back byte for byte, the seller must
+     be paid, a tampered adaptor signature must be refused, and K5a-K5c
+     must launch while K1-K3 do not.
 Prints the kernels' JSON line and the card's name and power limit, then
 `{"ok": true, "device": {...}}` as the last line.  Any failure raises and
 exits nonzero; without a CUDA device it exits nonzero and prints no result.
@@ -45,7 +59,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # both read at run time.  A 32x32->64-bit multiply-add is two such
 # instructions (low and high halves); only the multiply-adds and the
 # word-wise add/subtract chains are counted, so the bound stays a floor.
+# The K5 kernels' constant products run on the int8 tensor cores, whose
+# published dense rate (H100 SXM data sheet, 700 W) bounds them apart from
+# the integer instructions left on the integer pipe.
 PEAK_BYTES_PER_S = 3.35e12
+INT8_MMA_OPS_PER_S = 1.979e15
+MMA_OPS = 2 * 16 * 8 * 32  # one mma.sync.m16n8k32: 4096 multiply-adds
 INT_OPS_PER_CLOCK_PER_SM = 64
 PEAK_OPS_PER_S = None  # set by set_int_rate() from the card
 
@@ -65,17 +84,39 @@ def nvidia_smi() -> str:
         return f"nvidia-smi unavailable: {e}"
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, batches: int = 5, graph: bool = False) -> float:
+    """Per-call time: the median over `batches` batches of `reps` calls,
+    each batch timed by CUDA events, after a warm-up.  With `graph` the
+    `reps` calls are captured once into a CUDA graph that each batch
+    replays, so the time is the device's alone: a kernel of a few tens of
+    microseconds costs about as much again in its Python wrapper's launch."""
     fn()  # warm-up
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    run, per_batch = fn, reps
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        run, per_batch = g.replay, 1
+    per = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(per_batch):
+            run()
+        end.record()
+        torch.cuda.synchronize()
+        per.append(start.elapsed_time(end) / reps)
+    return float(np.median(per))
 
 
 def random_field(F, n: int, rng):
@@ -103,8 +144,11 @@ def set_int_rate() -> str:
             f"= {PEAK_OPS_PER_S:.4g} int32 op/s")
 
 
-def bound(nbytes: float, ops: float):
-    tb, to = nbytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S
+def bound(nbytes: float, ops: float, mma_ops: float = 0.0):
+    """Least time in ms: bytes at the memory rate, integer instructions at
+    the integer rate, tensor-core operations at the int8 rate."""
+    tb = nbytes / PEAK_BYTES_PER_S
+    to = max(ops / PEAK_OPS_PER_S, mma_ops / INT8_MMA_OPS_PER_S)
     return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
 
 
@@ -113,53 +157,101 @@ def max_abs_err(a, b) -> int:
 
 
 # ------------------------------------------------------------ kernel checks
+def madds(F):
+    """32x32->64-bit multiply-adds of one CIOS Montgomery product (K1)."""
+    w = F.L // 2
+    return 2 * w * w + w
+
+
+def mma_int_ops(F):
+    """Integer instructions left to a K5 Montgomery product: the a*b
+    schoolbook (W^2 multiply-adds, two instructions each), the fold of 3W
+    output words and the final subtract (one per word)."""
+    w = F.L // 2
+    return 2 * w * w + 4 * w
+
+
+def mma_ops_per_elem(F):
+    """Tensor-core operations of one K5 Montgomery product: the mma.sync
+    issued per 8 elements (structurally zero tiles skipped, as
+    csrc/k5_mma.cuh tile_used does), over 8."""
+    from contangle_zkcp_tpu_torch.ops import mont_mma
+
+    w, ks, mt_np, mt_p = mont_mma.mma_shape(F.L)
+    tiles = sum(mont_mma.tile_used(mt, k, w) for mt in range(mt_np) for k in range(ks))
+    tiles += sum(mont_mma.tile_used(mt, k, w) for mt in range(mt_p) for k in range(ks))
+    return tiles * MMA_OPS / 8
+
+
+def check(name, got, want, what):
+    """Exact equality of two tensors or tuples; returns the max abs error."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{name}: kernel != {what} (max err {err})")
+    return err
+
+
+def measure(recs, key, label, fn, plain, reps, preps, nbytes, ops, mma_ops=0.0, **extra):
+    """Kernel time from CUDA-graph replays, the twin's from direct calls."""
+    ms = cuda_ms(fn, reps, graph=True)
+    pms = cuda_ms(plain, preps)
+    bms, by = bound(nbytes, ops, mma_ops)
+    log(f"[kernels] {label}: equal, {ms:.4f} ms (twin {pms:.3f} ms, bound {bms:.4f} ms by {by})")
+    recs[key] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, **extra)
+
+
 def check_kernels(seed: int):
     """Each kernel vs its twin on the card; returns per-kernel records."""
     from contangle_zkcp_tpu_torch.curves import instances as ci
     from contangle_zkcp_tpu_torch.curves.weierstrass import SWDevice
     from contangle_zkcp_tpu_torch.fields import instances as fi
-    from contangle_zkcp_tpu_torch.ops import curve_add, mont
+    from contangle_zkcp_tpu_torch.ops import curve_add, field_mul, mont, mont_mma
 
     rng = np.random.default_rng(seed)
     recs = {}
 
-    def madds(F):  # 32x32->64-bit multiply-adds of one Montgomery product
-        w = F.L // 2
-        return 2 * w * w + w
-
     for F, n in ((fi.bls12_381_fr(), 1 << 18), (fi.bls12_381_fq(), 1 << 18)):
         a, b = random_field(F, n, rng), random_field(F, n, rng)
-        got = mont.mont_mul(F, a, b)
-        want = mont.mont_mul_plain(F, a, b)
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        if not torch.equal(got, want):
-            raise AssertionError(f"K1 {F.name} n={n}: kernel != twin (max err {err})")
-        ms = cuda_ms(lambda: mont.mont_mul(F, a, b), 50)
-        pms = cuda_ms(lambda: mont.mont_mul_plain(F, a, b), 3)
-        bms, by = bound(3 * n * F.L * 4, 2 * n * madds(F))
-        log(f"[kernels] K1 k1_mont_mul {F.name} n={n}: equal, {ms:.4f} ms "
-            f"(twin {pms:.3f} ms, bound {bms:.4f} ms by {by})")
-        recs[f"k1_{F.name}"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, err=err)
+        k1 = mont.mont_mul(F, a, b)
+        err = check("K1", k1, mont.mont_mul_plain(F, a, b), "twin")
+        nbytes = 3 * n * F.L * 4
+        measure(recs, f"k1_{F.name}", f"K1 k1_mont_mul {F.name} n={n}",
+                lambda: mont.mont_mul(F, a, b), lambda: mont.mont_mul_plain(F, a, b), 100, 1,
+                nbytes, 2 * n * madds(F), err=err)
+        eng = field_mul.make(F)
+        k4 = eng.mul(a, b)
+        err = check("K4", k4, eng.mul_reference(a, b), "twin")
+        check("K4", k4, k1, "K1")
+        measure(recs, f"k4_{F.name}", f"K4 k4_field_mul {F.name} n={n} (and equal to K1)",
+                lambda: eng.mul(a, b), lambda: eng.mul_reference(a, b), 100, 1,
+                nbytes, 2 * n * madds(F), err=err)
+        k5 = mont_mma.mont_mul_mma(F, a, b)
+        err = check("K5a", k5, mont_mma.mont_mul_mma_plain(F, a, b), "twin")
+        check("K5a", k5, k1, "K1")
+        measure(recs, f"k5a_{F.name}", f"K5a k5a_mont_mul_mma {F.name} n={n} (and equal to K1)",
+                lambda: mont_mma.mont_mul_mma(F, a, b), lambda: mont_mma.mont_mul_mma_plain(F, a, b),
+                100, 1, nbytes, n * mma_int_ops(F), n * mma_ops_per_elem(F), err=err)
 
     F, n = fi.bls12_381_fr(), 1 << 17
     u, v, tw = (random_field(F, n, rng) for _ in range(3))
-    hi, lo = mont.butterfly(F, u, v, tw)
-    phi, plo = mont.butterfly_plain(F, u, v, tw)
-    torch.cuda.synchronize()
-    err = max(max_abs_err(hi, phi), max_abs_err(lo, plo))
-    if not (torch.equal(hi, phi) and torch.equal(lo, plo)):
-        raise AssertionError(f"K2 n={n}: kernel != twin (max err {err})")
-    ms = cuda_ms(lambda: mont.butterfly(F, u, v, tw), 50)
-    pms = cuda_ms(lambda: mont.butterfly_plain(F, u, v, tw), 3)
     w = F.L // 2
-    bms, by = bound(5 * n * F.L * 4, n * (2 * madds(F) + 4 * w))
-    log(f"[kernels] K2 k2_butterfly fr n={n}: equal, {ms:.4f} ms "
-        f"(twin {pms:.3f} ms, bound {bms:.4f} ms by {by})")
-    recs["k2"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, err=err)
+    k2 = mont.butterfly(F, u, v, tw)
+    err = check("K2", k2, mont.butterfly_plain(F, u, v, tw), "twin")
+    measure(recs, "k2", f"K2 k2_butterfly fr n={n}", lambda: mont.butterfly(F, u, v, tw),
+            lambda: mont.butterfly_plain(F, u, v, tw), 100, 1,
+            5 * n * F.L * 4, n * (2 * madds(F) + 4 * w), err=err)
+    k5 = mont_mma.butterfly_mma(F, u, v, tw)
+    err = check("K5b", k5, mont_mma.butterfly_mma_plain(F, u, v, tw), "twin")
+    check("K5b", k5, k2, "K2")
+    measure(recs, "k5b", f"K5b k5b_butterfly_mma fr n={n} (and equal to K2)",
+            lambda: mont_mma.butterfly_mma(F, u, v, tw), lambda: mont_mma.butterfly_mma_plain(F, u, v, tw),
+            100, 1, 5 * n * F.L * 4, n * (mma_int_ops(F) + 4 * w), n * mma_ops_per_elem(F), err=err)
 
-    # K3: valid G1 points in random projective scalings, with identity on
-    # either side, P + P and P + (-P) among the pairs
+    # K3/K5c: valid G1 points in random projective scalings, with identity
+    # on either side, P + P and P + (-P) among the pairs
     Fq = fi.bls12_381_fq()
     C = ci.BLS12_381_G1
     dev = SWDevice(Fq, C, device="cuda")
@@ -188,11 +280,7 @@ def check_kernels(seed: int):
     Pt = tuple(P[k].contiguous() for k in ("x", "y", "z"))
     Qt = tuple(Q[k].contiguous() for k in ("x", "y", "z"))
     got = curve_add.sw_add(Fq, b3m, Pt, Qt)
-    want = curve_add.rcb_add_plain(Fq, b3m, Pt, Qt)
-    torch.cuda.synchronize()
-    err = max(max_abs_err(g, w_) for g, w_ in zip(got, want))
-    if not all(torch.equal(g, w_) for g, w_ in zip(got, want)):
-        raise AssertionError(f"K3 n={n}: kernel != twin (max err {err})")
+    err3 = check("K3", got, curve_add.rcb_add_plain(Fq, b3m, Pt, Qt), "twin")
     R = dev.decode_points({"x": got[0][: n // 2], "y": got[1][: n // 2], "z": got[2][: n // 2]})
     sample = list(range(0, n // 2, 997))
     h1, h2 = i1.cpu().numpy(), i2.cpu().numpy()
@@ -208,13 +296,18 @@ def check_kernels(seed: int):
             q_ = base[h2[j]]
         if R[j] != C.add(p_, q_):
             raise AssertionError(f"K3 pair {j}: wrong sum")
-    ms = cuda_ms(lambda: curve_add.sw_add(Fq, b3m, Pt, Qt), 20)
-    pms = cuda_ms(lambda: curve_add.rcb_add_plain(Fq, b3m, Pt, Qt), 2)
     w = Fq.L // 2
-    bms, by = bound(9 * n * Fq.L * 4, n * (12 * 2 * madds(Fq) + 17 * 2 * w))
-    log(f"[kernels] K3 k3_sw_add g1 n={n}: equal, host spot-check of {len(sample)} sums ok, "
-        f"{ms:.4f} ms (twin {pms:.3f} ms, bound {bms:.4f} ms by {by})")
-    recs["k3"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, err=err)
+    nbytes = 9 * n * Fq.L * 4
+    measure(recs, "k3", f"K3 k3_sw_add g1 n={n} (host spot-check of {len(sample)} sums ok)",
+            lambda: curve_add.sw_add(Fq, b3m, Pt, Qt), lambda: curve_add.rcb_add_plain(Fq, b3m, Pt, Qt),
+            40, 1, nbytes, n * (12 * 2 * madds(Fq) + 17 * 2 * w), err=err3)
+    k5 = curve_add.sw_add_mma(Fq, b3m, Pt, Qt)
+    err = check("K5c", k5, curve_add.rcb_add_mma_plain(Fq, b3m, Pt, Qt), "twin")
+    check("K5c", k5, got, "K3")
+    measure(recs, "k5c", f"K5c k5c_sw_add_mma g1 n={n} (and equal to K3)",
+            lambda: curve_add.sw_add_mma(Fq, b3m, Pt, Qt),
+            lambda: curve_add.rcb_add_mma_plain(Fq, b3m, Pt, Qt), 40, 1,
+            nbytes, n * (12 * mma_int_ops(Fq) + 17 * 2 * w), n * 12 * mma_ops_per_elem(Fq), err=err)
     return recs
 
 
@@ -286,6 +379,9 @@ def toy_golden():
 
 
 # ------------------------------------------------------------------- slice
+DEFAULT_KERNELS = ("k1_mont_mul", "k2_butterfly", "k3_sw_add")
+MXU_KERNELS = ("k5a_mont_mul_mma", "k5b_butterfly_mma", "k5c_sw_add_mma")
+
 def message(n_blocks: int, seed: int) -> bytes:
     """n 32-byte chunks that each parse as one field element and survive
     the chunk round trip (no trailing zero byte, top byte < 0x70)."""
@@ -355,21 +451,257 @@ def run_slice(n_blocks: int, seed: int):
 
     launches = dict(cuda_lib.LAUNCHES)
     log(f"[slice] launches on the main path: {json.dumps(launches, sort_keys=True)}")
-    for k in cuda_lib.KERNELS:
+    for k in DEFAULT_KERNELS:
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
+    for k in MXU_KERNELS:
+        if launches.get(k, 0):
+            raise AssertionError(f"kernel {k} launched in the default configuration")
     snap = metrics.registry().snapshot()
     timers = {k: round(v["total_sec"], 4) for k, v in sorted(snap["timers"].items())
               if k.startswith(("groth16.", "msm."))}
     log(f"[slice] timers (s): {json.dumps(timers)}")
     log(f"[slice] peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # The same encrypt + prove under ZKCP_MXU=1, on the same key: the
+    # tensor-core configuration's prove time beside the default's.
+    os.environ["ZKCP_MXU"] = "1"
+    try:
+        before = dict(cuda_lib.LAUNCHES)
+        prove0 = metrics.registry().snapshot()["timers"]["groth16.prove"]["total_sec"]
+        t0 = time.time()
+        cipher, proof = zk.encrypt(msg, pk_pt, rng)
+        torch.cuda.synchronize()
+        times["encrypt_prove_mxu"] = time.time() - t0
+        prove = metrics.registry().snapshot()["timers"]["groth16.prove"]["total_sec"] - prove0
+        if not zk.verify_proof(proof, cipher):
+            raise AssertionError("verifier rejected the ZKCP_MXU=1 proof")
+        delta = {k: v - before.get(k, 0) for k, v in cuda_lib.LAUNCHES.items() if v - before.get(k, 0)}
+        log(f"[slice] encrypt + prove under ZKCP_MXU=1: {times['encrypt_prove_mxu']:.3f} s "
+            f"(prove {prove:.3f} s), verifies; launches {json.dumps(delta, sort_keys=True)}")
+    finally:
+        os.environ.pop("ZKCP_MXU", None)
     shutil.rmtree(build_dir, ignore_errors=True)
     return launches, times
+
+
+# -------------------------------------------------------------------- sale
+def run_sale(n_blocks: int, seed: int):
+    """The whole ZKCP sale under ZKCP_MXU=1, real Groth16 throughout: the
+    reference's real-proof drive (benchmarks/drive_protocol_real.py, after
+    the Rust CLI's compile -> sell -> buy) on the port, at n_blocks one-byte
+    data blocks.  Returns (launches over the sale, per-step seconds)."""
+    import asyncio
+    import tempfile
+    from pathlib import Path
+
+    from contangle_zkcp_tpu_torch.circuits import elgamal
+    from contangle_zkcp_tpu_torch.curves import instances as ci
+    from contangle_zkcp_tpu_torch.ops import cuda_lib
+    from contangle_zkcp_tpu_torch.utils import metrics
+    from contangle_zkcp_tpu_torch.utils.errors import ProtocolError
+    from contangle_zkcp_tpu_torch.zkcp import (
+        Buyer, BuyerConfig, CircomParams, LocalWallet, Seller, SellerConfig, ZkConfig,
+        ZkSampleEntries, ZkVerifiableEncryption, secp,
+    )
+    from contangle_zkcp_tpu_torch.zkcp.cipher_host import LocalHost
+    from contangle_zkcp_tpu_torch.zkcp.client import SellerClient
+    from contangle_zkcp_tpu_torch.zkcp.ethereum import MockChain
+    from contangle_zkcp_tpu_torch.zkcp.server import SellerServer
+    from contangle_zkcp_tpu_torch.zkcp.zk_encryption import ZkEncryption
+
+    price = 0.25
+    base = os.path.join(ROOT, "contangle_zkcp_tpu_torch", "build")
+    os.makedirs(base, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sale_", dir=base))
+    cfg = ZkConfig(
+        prop_verifier_dir=str(tmp / "prop"),
+        data_encryption_dir=str(tmp / "data_enc"),
+        data_encryption_limit=n_blocks,
+        key_encryption_dir=str(tmp / "key_enc"),
+        circom_params=CircomParams(),
+        backend="groth16",
+    )
+    # one byte per block; no zero byte: the protocol's chunks_to_bytes
+    # drops zero bytes (the reference's circuits-ark/src/utils.rs quirk,
+    # utils/chunks.py)
+    data = np.random.default_rng(seed + 2).integers(1, 256, size=n_blocks, dtype=np.uint8).tobytes()
+    rng = random.Random(seed)
+    times = {}
+    os.environ["ZKCP_MXU"] = "1"
+    metrics.registry().reset()
+    cuda_lib.reset_launches()
+    seen = {}
+
+    def proving_s():
+        return metrics.registry().snapshot()["timers"].get("groth16.prove", {}).get("total_sec", 0.0)
+
+    def step(name, t0, note=""):
+        """One line per step: seconds, Groth16 proving seconds within them,
+        and the kernel launches since the last step."""
+        torch.cuda.synchronize()
+        times[name] = time.time() - t0
+        now = dict(cuda_lib.LAUNCHES, prove=proving_s())
+        delta = {k: v - seen.get(k, 0) for k, v in now.items() if v - seen.get(k, 0)}
+        seen.update(now)
+        prove = delta.pop("prove", 0.0)
+        log(f"[sale] {name}: {times[name]:.3f} s{note}; proving {prove:.3f} s; "
+            f"launches {json.dumps(delta, sort_keys=True)}")
+
+    try:
+
+        t0 = time.time()
+        ZkVerifiableEncryption(
+            cfg.data_encryption_dir,
+            ZkSampleEntries(cfg.prop_verifier_dir, n_blocks),
+            elgamal.ElGamalParams(curve=ci.JUBJUB, n=n_blocks),
+        ).compile(rng)
+        ZkEncryption(cfg.key_encryption_dir).compile(rng)
+        step("compile", t0, f" (data encryption n={n_blocks}, SampleEntries, key encryption n=1)")
+
+        chain = MockChain()
+        seller_wallet = LocalWallet.new(random.Random(seed + 63))
+        buyer_wallet = LocalWallet.new(random.Random(seed + 64))
+        t0 = time.time()
+        seller = Seller(
+            SellerConfig(price=price, cache_dir=str(tmp / "cache"), zk=cfg),
+            chain, LocalHost(tmp / "hosted"), ZkSampleEntries(cfg.prop_verifier_dir, n_blocks),
+            seller_wallet,
+        )
+        step("seller start (read the key files)", t0)
+        t0 = time.time()
+        seller.step0_setup(data)
+        step("seller step 0 (PoE + SampleEntries proof)", t0)
+
+        async def scenario():
+            server = SellerServer(seller, price, port=0)
+            await server.start()
+            actor = asyncio.create_task(seller.run())
+
+            def buyer_flow():
+                client = SellerClient(f"http://127.0.0.1:{server.port}")
+                if client.price() != price:
+                    raise AssertionError("seller quotes another price")
+                t = time.time()
+                buyer = Buyer(
+                    BuyerConfig(zk=cfg), chain,
+                    ZkSampleEntries.new_verifier(cfg.prop_verifier_dir, n_blocks), buyer_wallet,
+                )
+                step("buyer start (read the key files)", t)
+                t = time.time()
+                ve = client.download()
+                if not buyer.step0_verify(ve):
+                    raise AssertionError("buyer rejected the verifiable encryption")
+                step("buyer step 0 (download, verify PoE + property, device Merkle root)", t,
+                     f", ciphertext {len(ve.ciphertext)} bytes")
+                t = time.time()
+                step1 = client.step1(chain.address_from_pk(buyer_wallet.pub_key()))
+                step("seller step 1 (key encryption + proof)", t)
+                t = time.time()
+                enc_sig = buyer.step2(step1.ciphertext, step1.proof_of_encryption, step1.data_pk,
+                                      step1.seller_address, price)
+                step("buyer step 2 (verify key PoE, adaptor-sign the payment)", t)
+                t = time.time()
+                tx_hash = client.step3(buyer_wallet.pub_key(), enc_sig)
+                step("seller step 3 (check adaptor signature, broadcast)", t)
+                # a second buyer signs another amount: the seller must refuse
+                cheat = LocalWallet.new(random.Random(seed + 65))
+                t = time.time()
+                s1 = client.step1(chain.address_from_pk(cheat.pub_key()))
+                _, wrong = chain.compose_tx(chain.address_from_pk(cheat.pub_key()),
+                                            s1.seller_address, price / 2)
+                try:
+                    client.step3(cheat.pub_key(), secp.encrypted_sign(cheat.sec_key(), s1.data_pk, wrong))
+                except ProtocolError as e:
+                    if "invalid adaptor signature" not in str(e):
+                        raise
+                else:
+                    raise AssertionError("seller accepted a tampered adaptor signature")
+                step("tampered adaptor signature refused at step 3", t)
+                return buyer, ve, tx_hash
+
+            try:
+                buyer, ve, tx_hash = await asyncio.get_running_loop().run_in_executor(None, buyer_flow)
+                t = time.time()
+                plain = await buyer.step4(tx_hash, ve.ciphertext)
+                step("buyer step 4 (recover the key, decrypt)", t)
+                return plain
+            finally:
+                server.close()
+                actor.cancel()
+
+        t_sale = time.time()
+        plain = asyncio.run(scenario())
+        if plain != data:
+            raise AssertionError("the buyer's plaintext differs from the seller's data")
+        paid = chain.balances.get(chain.address_from_pk(seller_wallet.pub_key()), 0)
+        if paid != int(price * 10**18):
+            raise AssertionError(f"seller balance {paid} wei, expected the price")
+        times["protocol"] = time.time() - t_sale
+        log(f"[sale] plaintext {len(plain)} bytes equal to the data; seller paid {paid} wei; "
+            f"steps 0b-4 {times['protocol']:.3f} s")
+    finally:
+        os.environ.pop("ZKCP_MXU", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = dict(cuda_lib.LAUNCHES)
+    log(f"[sale] launches over the sale: {json.dumps(launches, sort_keys=True)}")
+    for k in MXU_KERNELS:
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"kernel {k} was not launched in the sale under ZKCP_MXU=1")
+    for k in DEFAULT_KERNELS:
+        if launches.get(k, 0):
+            raise AssertionError(f"kernel {k} launched under ZKCP_MXU=1")
+    snap = metrics.registry().snapshot()
+    timers = {k: round(v["total_sec"], 4) for k, v in sorted(snap["timers"].items())
+              if k.startswith(("groth16.", "seller.", "buyer."))}
+    log(f"[sale] timers (s): {json.dumps(timers)}")
+    return launches, times
+
+
+# name, source, TPU kernel it replaces, record key (Fr or the only shape),
+# Fq record key, shape, the path whose launches are reported
+KERNEL_ROWS = (
+    ("k1_mont_mul", "k1_mont_mul.cu", "contangle_zkcp_tpu/ops/pallas_mont.py:287",
+     "k1_bls12_381_fr", "k1_bls12_381_fq", "fr n=2^18", "poe"),
+    ("k2_butterfly", "k2_butterfly.cu", "contangle_zkcp_tpu/ops/pallas_mont.py:371",
+     "k2", None, "fr n/2=2^17", "poe"),
+    ("k3_sw_add", "k3_sw_add.cu", "contangle_zkcp_tpu/ops/pallas_curve.py:188",
+     "k3", None, "g1 n=2^16", "poe"),
+    ("k4_field_mul", "k1_mont_mul.cu", "contangle_zkcp_tpu/ops/pallas_field.py:156",
+     "k4_bls12_381_fr", "k4_bls12_381_fq", "fr n=2^18", None),
+    ("k5a_mont_mul_mma", "k5a_mont_mul_mma.cu", "contangle_zkcp_tpu/ops/pallas_mont.py:272",
+     "k5a_bls12_381_fr", "k5a_bls12_381_fq", "fr n=2^18", "sale"),
+    ("k5b_butterfly_mma", "k5b_butterfly_mma.cu", "contangle_zkcp_tpu/ops/pallas_mont.py:325",
+     "k5b", None, "fr n/2=2^17", "sale"),
+    ("k5c_sw_add_mma", "k5c_sw_add_mma.cu", "contangle_zkcp_tpu/ops/pallas_curve.py:153",
+     "k5c", None, "g1 n=2^16", "sale"),
+)
+
+
+def kernel_line(recs, launches):
+    """The {"kernels": [...]} records; launches are those of the path each
+    kernel runs on (K4 is on neither: reached only through its own entry
+    point, ops/field_mul.py)."""
+    out = []
+    for name, src, replaces, key, fq_key, shape, path in KERNEL_ROWS:
+        r = recs[key]
+        row = dict(name=name, route="cuda", source="contangle_zkcp_tpu_torch/csrc/" + src,
+                   replaces=replaces, launches=launches[path].get(name, 0) if path else 0,
+                   max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                   bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+                   shape=shape, path=path or "none")
+        if fq_key:
+            f = recs[fq_key]
+            row.update(fq_ms=f["ms"], fq_plain_ms=f["plain_ms"], fq_bound_ms=f["bound_ms"])
+        out.append(row)
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--blocks", type=int, default=49152, help="PoE blocks (default 49152)")
+    ap.add_argument("--sale-blocks", type=int, default=65536,
+                    help="data blocks of the sale, a power of two (default 65536)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     t_start = time.time()
@@ -382,6 +714,7 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the port package is missing ({e})", file=sys.stderr)
         return 2
+    os.environ.pop("ZKCP_MXU", None)  # the default configuration until the sale
 
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -391,9 +724,10 @@ def main() -> int:
     t0 = time.time()
     path = cuda_lib.build(verbose=False)
     cuda_lib.lib()
-    log(f"[build] {os.path.relpath(path, ROOT)} in {time.time() - t0:.2f} s (one nvcc call, sm_90a)")
+    log(f"[build] {os.path.relpath(path, ROOT)} in {time.time() - t0:.2f} s "
+        f"(one nvcc per source, all started together, sm_90a)")
 
-    log(f"[bound] integer rate: {set_int_rate()}")
+    log(f"[bound] integer rate: {set_int_rate()}; int8 tensor rate {INT8_MMA_OPS_PER_S:.4g} op/s")
     recs = check_kernels(args.seed)
 
     t0 = time.time()
@@ -405,33 +739,13 @@ def main() -> int:
     log(f"[golden] toy Groth16 pk/vk/proof bytes equal the pinned golden, "
         f"proof verifies: {time.time() - t0:.2f} s")
 
-    launches, times = run_slice(args.blocks, args.seed)
+    launches, times = {}, {}
+    launches["poe"], times["poe"] = run_slice(args.blocks, args.seed)
+    launches["sale"], times["sale"] = run_sale(args.sale_blocks, args.seed)
 
-    src = "contangle_zkcp_tpu_torch/csrc/"
-    kernels = [
-        dict(name="k1_mont_mul", route="cuda", source=src + "k1_mont_mul.cu",
-             replaces="contangle_zkcp_tpu/ops/pallas_mont.py:287",
-             launches=launches["k1_mont_mul"], max_abs_err=recs["k1_bls12_381_fr"]["err"],
-             ms=recs["k1_bls12_381_fr"]["ms"], plain_ms=recs["k1_bls12_381_fr"]["plain_ms"],
-             bound_ms=recs["k1_bls12_381_fr"]["bound_ms"],
-             bound_by=recs["k1_bls12_381_fr"]["bound_by"], library_ms=None,
-             shape="fr n=2^18", fq_ms=recs["k1_bls12_381_fq"]["ms"],
-             fq_plain_ms=recs["k1_bls12_381_fq"]["plain_ms"],
-             fq_bound_ms=recs["k1_bls12_381_fq"]["bound_ms"]),
-        dict(name="k2_butterfly", route="cuda", source=src + "k2_butterfly.cu",
-             replaces="contangle_zkcp_tpu/ops/pallas_mont.py:371",
-             launches=launches["k2_butterfly"], max_abs_err=recs["k2"]["err"],
-             ms=recs["k2"]["ms"], plain_ms=recs["k2"]["plain_ms"], bound_ms=recs["k2"]["bound_ms"],
-             bound_by=recs["k2"]["bound_by"], library_ms=None, shape="fr n/2=2^17"),
-        dict(name="k3_sw_add", route="cuda", source=src + "k3_sw_add.cu",
-             replaces="contangle_zkcp_tpu/ops/pallas_curve.py:188",
-             launches=launches["k3_sw_add"], max_abs_err=recs["k3"]["err"],
-             ms=recs["k3"]["ms"], plain_ms=recs["k3"]["plain_ms"], bound_ms=recs["k3"]["bound_ms"],
-             bound_by=recs["k3"]["bound_by"], library_ms=None, shape="g1 n=2^16"),
-    ]
     log(f"[done] wall {time.time() - t_start:.1f} s; phases (s): "
-        f"{json.dumps({k: round(v, 3) for k, v in times.items()})}")
-    print(json.dumps({"kernels": kernels}), flush=True)
+        f"{json.dumps({p: {k: round(v, 3) for k, v in t.items()} for p, t in times.items()})}")
+    print(json.dumps({"kernels": kernel_line(recs, launches)}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -53,3 +53,15 @@ extern "C" int k1_mont_mul(const void* a, const void* b, void* out,
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+// K4: the row-major entry of the same kernel.  Replaces the TPU kernel
+// contangle_zkcp_tpu/ops/pallas_field.py PallasFieldOps._mul (the round-1
+// multiply on (N, L) limbs, body mont_mul_block), reached through
+// ops/field_mul.py make(F).mul.  The Pallas kernel needed a second
+// algorithm for its limbs-on-lanes layout; here K1 already reads (n, L)
+// row-major limbs, so K4 is K1's template under its own name and launch
+// count, with K1's bound.
+extern "C" int k4_field_mul(const void* a, const void* b, void* out, long long n,
+                            int nwords, const uint32_t* p, uint32_t n0, void* stream) {
+  return k1_mont_mul(a, b, out, n, nwords, p, n0, stream);
+}

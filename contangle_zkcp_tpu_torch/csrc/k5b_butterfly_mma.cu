@@ -1,0 +1,67 @@
+// K5b: fused radix-2 NTT butterfly, (hi, lo) = (u + v*tw, u - v*tw) mod p,
+// with the Montgomery multiply's constant products on the int8 tensor
+// cores (K2's result, bit for bit).
+//
+// Replaces the TPU kernel contangle_zkcp_tpu/ops/pallas_mont.py
+// MontMulLanes._bf_kernel_mxu (MontMulLanes.butterfly_t with mxu set):
+// every NTT stage of the port in the ZKCP_MXU=1 configuration
+// (ops/mont_mma.py butterfly_mma).
+//
+// What bounds it on an H100: device memory, as K2 (three operands read,
+// two results written, 8W bytes each); the constant products are 6
+// mma.sync per 8 butterflies of Fr.  Design: K5a's warp layout
+// (k5_mma.cuh) for v*tw; the modular add and subtract stay in the owner
+// lane's registers, so v*tw never reaches device memory.
+
+#include <cuda_runtime.h>
+
+#include "k5_mma.cuh"
+
+template <int W>
+__global__ void __launch_bounds__(K5_THREADS)
+k5b_kernel(const int32_t* __restrict__ u, const int32_t* __restrict__ v,
+           const int32_t* __restrict__ tw, int32_t* __restrict__ hi,
+           int32_t* __restrict__ lo, long long n, FieldConst<W> F,
+           const uint4* __restrict__ frag) {
+  __shared__ __align__(16) MmaSmem<W> sm;
+  load_fragments<W>(sm.A, frag);
+  __syncthreads();
+  const MmaWarp<W> w = warp_view<W>(sm);
+  const long long stride = (long long)gridDim.x * K5_THREADS;
+  for (long long base = (long long)blockIdx.x * K5_THREADS + (threadIdx.x & ~31); base < n;
+       base += stride) {
+    const long long i = base + w.lane;
+    const bool live = i < n;
+    uint32_t a[W], x[W], t[W], vw[W], r[W];
+    load_live<W>(v + i * 2 * W, live, x);
+    load_live<W>(tw + i * 2 * W, live, t);
+    mont_mul_mma<W>(x, t, vw, F, w);
+    load_live<W>(u + i * 2 * W, live, a);
+    mod_add<W>(a, vw, r, F);
+    if (live) store_elem<W>(hi + i * 2 * W, r);
+    mod_sub<W>(a, vw, r, F);
+    if (live) store_elem<W>(lo + i * 2 * W, r);
+  }
+}
+
+template <int W>
+static int launch_k5b(const void* u, const void* v, const void* tw, void* hi, void* lo,
+                      long long n, const uint32_t* p, uint32_t n0, const void* frag,
+                      cudaStream_t s) {
+  if (n > 0)
+    k5b_kernel<W><<<k5_grid(n), K5_THREADS, 0, s>>>(
+        (const int32_t*)u, (const int32_t*)v, (const int32_t*)tw, (int32_t*)hi,
+        (int32_t*)lo, n, make_field<W>(p, n0), (const uint4*)frag);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int k5b_butterfly_mma(const void* u, const void* v, const void* tw, void* hi,
+                                 void* lo, long long n, int nwords, const uint32_t* p,
+                                 uint32_t n0, const void* frag, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (nwords) {
+    case 8: return launch_k5b<8>(u, v, tw, hi, lo, n, p, n0, frag, s);
+    case 12: return launch_k5b<12>(u, v, tw, hi, lo, n, p, n0, frag, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -130,10 +130,14 @@ def sqrt_mod(a: int, p: int):
     a %= p
     if a == 0:
         return 0
+    if p % 4 == 3:
+        # one exponentiation: the candidate squares back to a exactly when
+        # a is a residue (the Euler test is a second one, and decompressing
+        # a large verifying key spends its time here)
+        r = pow(a, (p + 1) // 4, p)
+        return r if r * r % p == a else None
     if pow(a, (p - 1) // 2, p) != 1:
         return None
-    if p % 4 == 3:
-        return pow(a, (p + 1) // 4, p)
     # general Tonelli-Shanks
     q, s = p - 1, 0
     while q % 2 == 0:

@@ -459,30 +459,39 @@ class Groth16:
     def _vk_alpha(self, pk):
         return pk.vk.alpha_g1
 
+    def input_sum(self, vk: VerifyingKey, public_inputs):
+        """gamma_abc[0] + sum x_i gamma_abc[i + 1], a host affine point.
+
+        The sum is itself an MSM: it runs on the device for a
+        device-resident key, and for a key read from disk (host points)
+        once it has DEVICE_INPUT_SUM_MIN inputs or more.  The reference
+        keeps a host loop of scalar multiplications for the latter, which
+        takes minutes for the tens of thousands of inputs of a large
+        Proof of Encryption; the point is the same."""
+        ctx = self.ctx
+        g1 = ctx.g1
+        gabc = vk.gamma_abc_g1
+        nabc = int(gabc["x"].shape[0]) if isinstance(gabc, dict) else len(gabc)
+        assert len(public_inputs) == nabc - 1, "input length"
+        if isinstance(gabc, dict):
+            first = ctx.g1_dev.decode_points({k: v[:1] for k, v in gabc.items()})[0]
+            rest = {k: v[1:] for k, v in gabc.items()}
+        elif nabc - 1 >= DEVICE_INPUT_SUM_MIN:
+            first, rest = gabc[0], gabc[1:]
+        else:
+            acc = gabc[0]
+            for x, base in zip(public_inputs, gabc[1:]):
+                acc = g1.add(acc, g1.mul(x % ctx.r, base))
+            return acc
+        return g1.add(first, ctx.msm_g1(nabc - 1).run(rest, [x % ctx.r for x in public_inputs]))
+
     # ------------------------------------------------------------ verify
     @metrics.timed("groth16.verify")
     def verify(self, vk: VerifyingKey, public_inputs, proof: Proof) -> bool:
         """e(A,B) == e(alpha,beta) * e(acc,gamma) * e(C,delta)."""
         ctx = self.ctx
         g1 = ctx.g1
-        if isinstance(vk.gamma_abc_g1, dict):
-            # device-resident CRS (large circuits): the public-input
-            # accumulation is itself an MSM — run it on device
-            nabc = int(vk.gamma_abc_g1["x"].shape[0])
-            assert len(public_inputs) == nabc - 1, "input length"
-            first = ctx.g1_dev.decode_points(
-                {k: v[:1] for k, v in vk.gamma_abc_g1.items()}
-            )[0]
-            rest = {k: v[1:] for k, v in vk.gamma_abc_g1.items()}
-            acc = ctx.msm_g1(nabc - 1).run(
-                rest, [x % ctx.r for x in public_inputs]
-            )
-            acc = g1.add(first, acc)
-        else:
-            assert len(public_inputs) == len(vk.gamma_abc_g1) - 1, "input length"
-            acc = vk.gamma_abc_g1[0]
-            for x, base in zip(public_inputs, vk.gamma_abc_g1[1:]):
-                acc = g1.add(acc, g1.mul(x % ctx.r, base))
+        acc = self.input_sum(vk, public_inputs)
         eng = ctx.pairing
         lhs = eng.multi_pairing(
             [
@@ -494,6 +503,10 @@ class Groth16:
         rhs = eng.pairing(vk.alpha_g1, vk.beta_g2)
         return lhs == rhs
 
+
+# Public inputs from which a host-resident verifying key's input sum runs
+# as a device MSM (Groth16.input_sum).
+DEVICE_INPUT_SUM_MIN = 256
 
 _NTT_CACHE = {}
 

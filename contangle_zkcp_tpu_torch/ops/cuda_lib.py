@@ -1,8 +1,10 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The three kernels (csrc/k1_mont_mul.cu, k2_butterfly.cu, k3_sw_add.cu)
-are compiled by ONE `nvcc` call for `sm_90a` into a plain shared library
-with a C interface, loaded with ctypes.  The build happens at first use,
+The kernels (csrc/k1_mont_mul.cu with K4's entry, k2_butterfly.cu,
+k3_sw_add.cu, k5a_mont_mul_mma.cu, k5b_butterfly_mma.cu, k5c_sw_add_mma.cu)
+are compiled for `sm_90a`, one `nvcc` per source, all started together,
+and linked into one plain shared library with a C interface, loaded with
+ctypes.  The build happens at first use,
 never at import, into `contangle_zkcp_tpu_torch/build/` (git-ignored); the
 library's file name carries a hash of the sources, so an edited source
 is never served by a stale build.
@@ -28,7 +30,15 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 
-KERNELS = ("k1_mont_mul", "k2_butterfly", "k3_sw_add")
+KERNELS = (
+    "k1_mont_mul",
+    "k2_butterfly",
+    "k3_sw_add",
+    "k4_field_mul",
+    "k5a_mont_mul_mma",
+    "k5b_butterfly_mma",
+    "k5c_sw_add_mma",
+)
 LAUNCHES: Counter = Counter()
 
 _LIB = None
@@ -61,26 +71,46 @@ def lib_path() -> str:
 
 
 def build(verbose: bool = False) -> str:
-    """Compile every kernel in one nvcc call (no-op when already built)."""
+    """Compile every kernel source with its own nvcc, all started together,
+    then link them into one library (no-op when already built)."""
     out = lib_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    cus = [s for s in _sources() if s.endswith(".cu")]
-    tmp = out + f".{os.getpid()}.tmp"
-    cmd = [
-        _nvcc(),
-        "-gencode", "arch=compute_90a,code=sm_90a",
-        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-Xptxas", "-v",
-        "-o", tmp, *cus,
-    ]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    tag = f"{os.getpid()}.tmp"
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC"]
+    objs, procs = [], []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    logs, failed = [], []
+    try:
+        for proc in procs:
+            _, err = proc.communicate(timeout=900)
+            logs.append(err)
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(proc.args[-1])} ({proc.returncode}):\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = out + f".{tag}"
+        res = subprocess.run([_nvcc(), *flags, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     if verbose:
-        print(res.stderr, flush=True)
-    os.replace(tmp, out)
+        print("".join(logs), flush=True)
     return out
 
 
@@ -98,6 +128,10 @@ def lib():
         so.k1_mont_mul.argtypes = [vp, vp, vp, ll, i32, vp, u32, vp]
         so.k2_butterfly.argtypes = [vp, vp, vp, vp, vp, ll, i32, vp, u32, vp]
         so.k3_sw_add.argtypes = [vp] * 9 + [ll, i32, vp, u32, vp, vp]
+        so.k4_field_mul.argtypes = [vp, vp, vp, ll, i32, vp, u32, vp]
+        so.k5a_mont_mul_mma.argtypes = [vp, vp, vp, ll, i32, vp, u32, vp, vp]
+        so.k5b_butterfly_mma.argtypes = [vp, vp, vp, vp, vp, ll, i32, vp, u32, vp, vp]
+        so.k5c_sw_add_mma.argtypes = [vp] * 9 + [ll, i32, vp, u32, vp, vp, vp]
         for name in KERNELS:
             getattr(so, name).restype = ctypes.c_int
         _LIB = so

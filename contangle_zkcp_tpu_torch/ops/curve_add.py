@@ -1,4 +1,5 @@
-"""K3 (complete G1 point add): wrapper and twin.
+"""K3 (complete G1 point add) and K5c (its tensor-core variant): wrappers
+and twins.
 
 Port of `contangle_zkcp_tpu/ops/pallas_curve.py` (`PallasSWAdd.add_t`,
 body `rcb_add_body`): the Renes-Costello-Batina complete projective
@@ -14,21 +15,23 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda_lib
+from . import cuda_lib, mont_mma
 from .mont import _words, add_rows, check_operands, from_cols, mont_rows, sub_rows, to_cols, words
 
 
-def rcb_add_plain(F, b3m: int, P, Q):
+def rcb_add_plain(F, b3m: int, P, Q, mont=mont_rows):
     """Plain torch RCB complete addition, a = 0.
 
     P = (X1, Y1, Z1), Q = (X2, Y2, Z2) as (n, L) planes; b3m is 3b in
-    Montgomery form (3b R mod p) as a host int.  Returns (X3, Y3, Z3)."""
+    Montgomery form (3b R mod p) as a host int; `mont` is the limb-major
+    Montgomery product (K1's twin, or K5a's for K5c).  Returns (X3, Y3,
+    Z3)."""
     X1, Y1, Z1, X2, Y2, Z2 = (to_cols(t) for t in (*P, *Q))
     p = F.const("p", X1.device).to(torch.int64)[:, None]
     b3 = to_cols(F.encode(b3m, mont=False, device=X1.device)[None]).expand(X1.shape)
 
     def mul(x, y):
-        return mont_rows(F, x, y)
+        return mont(F, x, y)
 
     def add(x, y):
         return add_rows(x, y, p)
@@ -53,9 +56,17 @@ def rcb_add_plain(F, b3m: int, P, Q):
     return from_cols(X3), from_cols(Y3), from_cols(Z3)
 
 
+def rcb_add_mma_plain(F, b3m: int, P, Q):
+    """K5c's plain torch version: the same formula over K5a's twin."""
+    return rcb_add_plain(F, b3m, P, Q, mont=mont_mma.mont_rows_mma)
+
+
 def sw_add(F, b3m: int, P, Q):
     """K3: P + Q for (n, L) int32 coordinate planes (canonical Montgomery
-    limbs); b3m is 3b R mod p, the curve constant in Montgomery form."""
+    limbs); b3m is 3b R mod p, the curve constant in Montgomery form.
+    K5c under ZKCP_MXU=1."""
+    if mont_mma.use_mxu():
+        return sw_add_mma(F, b3m, P, Q)
     n = check_operands(F, *P, *Q)
     if not P[0].is_cuda:
         return rcb_add_plain(F, b3m, P, Q)
@@ -71,4 +82,25 @@ def sw_add(F, b3m: int, P, Q):
     )
     cuda_lib.LAUNCHES["k3_sw_add"] += 1
     cuda_lib.check(rc, "k3_sw_add")
+    return out
+
+
+def sw_add_mma(F, b3m: int, P, Q):
+    """K5c: K3's sum with every multiply's constant products on the int8
+    tensor cores (csrc/k5c_sw_add_mma.cu)."""
+    n = check_operands(F, *P, *Q)
+    if not P[0].is_cuda:
+        return rcb_add_mma_plain(F, b3m, P, Q)
+    out = tuple(torch.empty_like(P[0]) for _ in range(3))
+    if n == 0:
+        return out
+    p, n0 = _words(F)
+    b3w = words(F, b3m)
+    rc = cuda_lib.lib().k5c_sw_add_mma(
+        *(t.data_ptr() for t in P), *(t.data_ptr() for t in Q),
+        *(t.data_ptr() for t in out), n, F.L // 2, p, n0, b3w,
+        mont_mma.fragments(F, P[0].device).data_ptr(), cuda_lib.stream_ptr(P[0]),
+    )
+    cuda_lib.LAUNCHES["k5c_sw_add_mma"] += 1
+    cuda_lib.check(rc, "k5c_sw_add_mma")
     return out

@@ -1,5 +1,8 @@
 """K1 (Montgomery multiply) and K2 (NTT butterfly): wrappers and twins.
 
+Under `ZKCP_MXU=1` both wrappers route to their tensor-core variants K5a
+and K5b (ops/mont_mma.py), as the reference's engines do.
+
 Port of `contangle_zkcp_tpu/ops/pallas_mont.py` (`MontMulLanes.mul_t`,
 `MontMulLanes.butterfly_t`).  Operands are `(n, L)` int32 tensors of
 16-bit limbs, canonical, Montgomery form (R = 2^(16 L)), batch-major: the
@@ -159,7 +162,12 @@ def _words(F):
 
 
 def mont_mul(F, a, b):
-    """K1: out = a*b*R^-1 mod p for (n, L) int32 limb tensors."""
+    """K1: out = a*b*R^-1 mod p for (n, L) int32 limb tensors; K5a under
+    ZKCP_MXU=1 (ops/mont_mma.py)."""
+    from . import mont_mma
+
+    if mont_mma.use_mxu():
+        return mont_mma.mont_mul_mma(F, a, b)
     n = check_operands(F, a, b)
     if not a.is_cuda:
         return mont_mul_plain(F, a, b)
@@ -177,7 +185,12 @@ def mont_mul(F, a, b):
 
 
 def butterfly(F, u, v, tw):
-    """K2: (u + v*tw, u - v*tw) mod p for (n, L) int32 limb tensors."""
+    """K2: (u + v*tw, u - v*tw) mod p for (n, L) int32 limb tensors; K5b
+    under ZKCP_MXU=1 (ops/mont_mma.py)."""
+    from . import mont_mma
+
+    if mont_mma.use_mxu():
+        return mont_mma.butterfly_mma(F, u, v, tw)
     n = check_operands(F, u, v, tw)
     if not u.is_cuda:
         return butterfly_plain(F, u, v, tw)

@@ -17,9 +17,12 @@ Sponge semantics (ark-sponge 0.3 duplex):
   squeeze permutes once then reads state[capacity+i].
 Absorbing a curve point absorbs its affine coordinates [x, y].
 
-The port carries the host implementation (exact Python ints: witness
-generation, the ElGamal KDF, tests); the JAX package's batched device
-Poseidon is still to port (ROADMAP.md, A7).
+Port of `contangle_zkcp_tpu/ops/poseidon.py`.  Two implementations,
+bit-identical:
+  * host: exact Python ints (witness generation, protocol layer, tests);
+  * device: batched over leading axes on limb tensors (`PoseidonDevice`):
+    every Merkle level is one batch, each round's multiplies one `Fp.mul`
+    (kernel K1, or K5a under ZKCP_MXU=1).
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from __future__ import annotations
 import json
 import os
 from functools import lru_cache
+
+import torch
 
 _PARAMS_PATH = os.path.join(os.path.dirname(__file__), "poseidon_params_p1.json")
 
@@ -131,3 +136,68 @@ class SpongeHost:
         self.squeeze_index = i
         self.absorb_index = None
         return out
+
+
+# ------------------------------------------------------------------- device
+class PoseidonDevice:
+    """Batched Poseidon on limb tensors: the state is (..., 3, L) int32 in
+    Montgomery form, every lane of the leading axes one permutation.  The
+    round constants and the MDS matrix are Montgomery tensors, made on each
+    device the first time it is used; operations run where their operands
+    are."""
+
+    def __init__(self, F):
+        self.F = F
+        ark, mds, self.alpha, self.rf, self.rp = p1_params(F.p)
+        assert self.alpha == 17, "device s-box addition chain assumes alpha=17"
+        self.total_rounds = self.rf + self.rp
+        self.half = self.rf // 2
+        self._ark, self._mds = ark, mds
+        self._consts = {}
+
+    def consts(self, device):
+        """(ark (rounds, 3, L), mds (3, 3, L)) Montgomery tensors on device."""
+        key = str(torch.device(device))
+        if key not in self._consts:
+            F = self.F
+            ark = F.encode([x for row in self._ark for x in row], device=device)
+            mds = F.encode([x for row in self._mds for x in row], device=device)
+            self._consts[key] = (ark.reshape(-1, WIDTH, F.L), mds.reshape(WIDTH, WIDTH, F.L))
+        return self._consts[key]
+
+    def _pow_alpha(self, x):
+        # alpha = 17 = 10001b: 4 squarings + 1 multiply
+        F = self.F
+        s = x
+        for _ in range(4):
+            s = F.mul(s, s)
+        return F.mul(s, x)
+
+    def _round(self, r, state, full: bool):
+        F = self.F
+        ark, mds = self.consts(state.device)
+        state = F.add(state, ark[r])
+        if full:
+            state = self._pow_alpha(state)
+        else:  # partial round: the s-box on the first element only
+            state = torch.cat([self._pow_alpha(state[..., :1, :]), state[..., 1:, :]], dim=-2)
+        # MDS: new_i = sum_j mds[i][j] * s_j, one (..., 3, 3) batch multiply
+        prod = F.mul(mds, state[..., None, :, :])
+        acc = F.add(prod[..., 0, :], prod[..., 1, :])
+        return F.add(acc, prod[..., 2, :])
+
+    def permute(self, state):
+        """state: (..., 3, L) Montgomery limbs -> same shape."""
+        for r in range(self.total_rounds):
+            full = r < self.half or r >= self.half + self.rp
+            state = self._round(r, state, full)
+        return state
+
+    def hash2(self, x, y):
+        """Batched hash2: x, y (..., L) Montgomery -> (..., L) Montgomery."""
+        zero = torch.zeros_like(x)
+        return self.permute(torch.stack([zero, x, y], dim=-2))[..., CAPACITY, :]
+
+    def hash1(self, x):
+        zero = torch.zeros_like(x)
+        return self.permute(torch.stack([zero, x, zero], dim=-2))[..., CAPACITY, :]

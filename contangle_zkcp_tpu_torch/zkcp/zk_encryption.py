@@ -2,9 +2,8 @@
 
 Port of `contangle_zkcp_tpu/zkcp/zk_encryption.py`: artifact management
 (`circuit.zkey` / `verification.key` in a build dir), byte-level
-encrypt+prove / decrypt, proof verification, and `compile` (setup +
-artifact write).  The cross-curve `keygen_derive` loop waits for the port
-of the payment layer (zkcp/secp.py).
+encrypt+prove / decrypt, the cross-curve `keygen_derive` loop, proof
+verification, and `compile` (setup + artifact write).
 
 A pluggable snark backend supports:
   * "groth16": the real prover on the card (default);
@@ -28,6 +27,7 @@ from ..groth16 import serialize as g16ser
 from ..utils import chunks as chunk_util
 from ..utils import serialize as ser
 from ..utils.errors import ProofError, SerializationError
+from . import secp
 
 PROVING_KEY_FILE = "circuit.zkey"
 VERIFYING_KEY_FILE = "verification.key"
@@ -88,6 +88,18 @@ class ZkEncryption:
     # ------------------------------------------------------------ key mgmt
     def keygen(self, rng=None):
         return elgamal.keygen(self.params, rng)
+
+    def keygen_derive(self, rng=None):
+        """Loop ElGamal keygen until the Jubjub scalar's LE bytes also parse
+        as a secp256k1 scalar (encryption.rs:118-133 + utils.rs:28-37)."""
+        while True:
+            sk, pk = self.keygen(rng)
+            le = ser.fp_to_bytes(sk, self.params.curve.order)
+            try:
+                secp_sk, secp_pk = secp.keypair_from_bytes(le)
+            except ValueError:
+                continue
+            return pk, secp_sk, secp_pk
 
     # ------------------------------------------------------- encrypt/prove
     def encrypt(self, msg: bytes, pk, rng=None) -> tuple:

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (K1, K2, K3) against their plain torch twins on
-the card, at awkward sizes (empty, one element, odd counts) and through
-the wrappers' operand checks.  Needs an NVIDIA Hopper GPU and nvcc; skips
+"""The port's CUDA kernels (K1-K3, K4, and the tensor-core K5a-K5c) against
+their plain torch twins on the card, at awkward sizes (empty, one element,
+odd counts, a ragged last warp) and through the wrappers' operand checks.  Needs an NVIDIA Hopper GPU and nvcc; skips
 elsewhere.  Run on the card (this file imports no JAX, so the suite's
 conftest is not needed there):
 
@@ -14,7 +14,7 @@ import torch
 from contangle_zkcp_tpu_torch.curves import instances as ci
 from contangle_zkcp_tpu_torch.curves.weierstrass import SWDevice
 from contangle_zkcp_tpu_torch.fields import instances as tfi
-from contangle_zkcp_tpu_torch.ops import cuda_lib, curve_add, mont
+from contangle_zkcp_tpu_torch.ops import cuda_lib, curve_add, field_mul, mont, mont_mma
 
 pytestmark = pytest.mark.cuda
 
@@ -89,3 +89,86 @@ def test_wrapper_operand_checks(card):
     shifted = flat[8:120].view(7, 16)  # 32-byte offset: aligned
     got = mont.mont_mul(F, shifted, a[:7]).cpu()
     assert torch.equal(got, mont.mont_mul_plain(F, shifted.cpu(), a[:7].cpu()))
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 1000, 4099])
+@pytest.mark.parametrize("name", ["bls12_381_fr", "bls12_381_fq"])
+def test_k4_equals_twin(card, name, n):
+    F = getattr(tfi, name)()
+    a, b = rand(F, n, 11), rand(F, n, 12)
+    eng = field_mul.make(F)
+    before = cuda_lib.LAUNCHES["k4_field_mul"]
+    got = eng.mul(a.to(card), b.to(card)).cpu()
+    assert torch.equal(got, eng.mul_reference(a, b))
+    assert torch.equal(got, mont.mont_mul_plain(F, a, b))
+    assert cuda_lib.LAUNCHES["k4_field_mul"] == before + (1 if n else 0)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 1000, 4099, 300000])
+@pytest.mark.parametrize("name", ["bls12_381_fr", "bls12_381_fq"])
+def test_k5a_equals_twin_and_k1(card, name, n):
+    F = getattr(tfi, name)()
+    a, b = rand(F, n, 13), rand(F, n, 14)
+    before = cuda_lib.LAUNCHES["k5a_mont_mul_mma"]
+    got = mont_mma.mont_mul_mma(F, a.to(card), b.to(card))
+    assert torch.equal(got.cpu(), mont_mma.mont_mul_mma_plain(F, a, b))
+    assert torch.equal(got, mont.mont_mul(F, a.to(card), b.to(card)))  # K1
+    assert cuda_lib.LAUNCHES["k5a_mont_mul_mma"] == before + (1 if n else 0)
+
+
+@pytest.mark.parametrize("n", [1, 33, 2048])
+def test_k5b_equals_twin_and_k2(card, n):
+    F = tfi.bls12_381_fr()
+    u, v, w = rand(F, n, 15), rand(F, n, 16), rand(F, n, 17)
+    hi, lo = mont_mma.butterfly_mma(F, u.to(card), v.to(card), w.to(card))
+    phi, plo = mont_mma.butterfly_mma_plain(F, u, v, w)
+    assert torch.equal(hi.cpu(), phi) and torch.equal(lo.cpu(), plo)
+    khi, klo = mont.butterfly(F, u.to(card), v.to(card), w.to(card))  # K2
+    assert torch.equal(hi, khi) and torch.equal(lo, klo)
+
+
+@pytest.mark.parametrize("n", [1, 5, 300])
+def test_k5c_equals_twin_and_k3(card, n):
+    Fq = tfi.bls12_381_fq()
+    C = ci.BLS12_381_G1
+    dev = SWDevice(Fq, C, device=card)
+    pts, acc = [], None
+    for _ in range(n + 2):
+        acc = C.add(acc, C.generator)
+        pts.append(acc)
+    left = [None] + pts[1:n]
+    right = pts[2 : n + 2] if n > 1 else [pts[0]]
+    if n > 2:
+        right[1] = C.neg(left[1])
+        right[2] = left[2]
+    P, Q = dev.encode_points(left), dev.encode_points(right)
+    Pt, Qt = tuple(P[k] for k in "xyz"), tuple(Q[k] for k in "xyz")
+    got = curve_add.sw_add_mma(Fq, dev._b3m, Pt, Qt)
+    want = curve_add.rcb_add_mma_plain(
+        Fq, dev._b3m, tuple(t.cpu() for t in Pt), tuple(t.cpu() for t in Qt)
+    )
+    k3 = curve_add.sw_add(Fq, dev._b3m, Pt, Qt)
+    for g, w, k in zip(got, want, k3):
+        assert torch.equal(g.cpu(), w) and torch.equal(g, k)
+    assert dev.decode_points(dict(zip("xyz", got))) == [C.add(a, b) for a, b in zip(left, right)]
+
+
+def test_mxu_switch_routes_to_k5(card, monkeypatch):
+    """ZKCP_MXU=1: Fp.mul, the NTT butterfly and G1 adds launch K5a-c and
+    none of K1-K3."""
+    from contangle_zkcp_tpu_torch.ops.ntt import NTT
+
+    monkeypatch.setenv("ZKCP_MXU", "1")
+    F = tfi.bls12_381_fr()
+    x = rand(F, 1 << 12, 18).to(card)
+    cuda_lib.reset_launches()
+    F.mul(x, x)
+    ntt = NTT(F, 1 << 12, device=card)
+    assert torch.equal(ntt.inverse(ntt.forward(x)), x)
+    Fq = tfi.bls12_381_fq()
+    dev = SWDevice(Fq, ci.BLS12_381_G1, device=card)
+    P = dev.encode_points([ci.BLS12_381_G1.generator] * 4)
+    dev.add(P, P)
+    counts = dict(cuda_lib.LAUNCHES)
+    assert all(counts.get(k, 0) > 0 for k in ("k5a_mont_mul_mma", "k5b_butterfly_mma", "k5c_sw_add_mma"))
+    assert all(counts.get(k, 0) == 0 for k in ("k1_mont_mul", "k2_butterfly", "k3_sw_add"))

@@ -104,3 +104,20 @@ def test_broadcast_add():
     assert got["x"].shape == (3, 2, 24)
     flat = tdev.decode_points(got)
     assert flat == [jci.BLS12_381_G1.add(a, b) for a in P for b in P[:2]]
+
+
+@pytest.mark.parametrize("name", ["fq", "fr"])
+def test_sqrt_mod_matches_reference(name):
+    """The host square root (point decompression) returns the reference's
+    root or None for the same inputs: p = 3 mod 4 (Fq) takes one
+    exponentiation, p = 1 mod 4 (Fr) Tonelli-Shanks."""
+    from contangle_zkcp_tpu.curves.host import sqrt_mod as jsqrt
+    from contangle_zkcp_tpu_torch.curves.host import sqrt_mod
+
+    p = getattr(tfi, f"bls12_381_{name}")().p
+    xs = [0, 1, p - 1] + [int(v) for v in np.random.default_rng(99).integers(0, 1 << 62, size=40)]
+    xs += [x * x % p for x in xs[3:13]]
+    for x in xs:
+        r = sqrt_mod(x, p)
+        assert r == jsqrt(x, p)
+        assert r is None or r * r % p == x % p

@@ -154,3 +154,32 @@ def test_elgamal_blocks_match_jax():
     got = tdev.encrypt_blocks(dh, tF.encode(msgs, device="cpu"))
     np.testing.assert_array_equal(got.numpy(), want)
     assert tF.decode(tdev.decrypt_blocks(dh, got)) == msgs
+
+
+def test_input_sum_of_a_host_key_runs_as_msm():
+    """A verifying key read from disk holds host points; from
+    DEVICE_INPUT_SUM_MIN inputs its input sum is a device MSM, equal to
+    the reference's host loop of scalar multiplications."""
+    from contangle_zkcp_tpu_torch.groth16 import groth16 as tg
+    from contangle_zkcp_tpu_torch.groth16.groth16 import VerifyingKey
+
+    C = ci.BLS12_381_G1
+    n = tg.DEVICE_INPUT_SUM_MIN + 3
+    rng = random.Random(97)
+    step = C.mul(rng.randrange(1, 1 << 40), C.generator)
+    pts, acc = [], None
+    for _ in range(n + 1):
+        acc = C.add(acc, step)
+        pts.append(acc)
+    xs = [rng.randrange(2) for _ in range(n)]
+    for i in range(0, n, 37):
+        xs[i] = rng.randrange(tfi.BLS12_381_R)
+    vk = VerifyingKey(alpha_g1=None, beta_g2=None, gamma_g2=None, delta_g2=None, gamma_abc_g1=pts)
+    want = pts[0]
+    for x, P in zip(xs, pts[1:]):
+        want = C.add(want, C.mul(x, P))
+    eng = Groth16("bls12_381", device="cpu")
+    assert eng.input_sum(vk, xs) == want
+    small = VerifyingKey(None, None, None, None, pts[:4])
+    assert eng.input_sum(small, xs[:3]) == C.add(C.add(C.add(pts[0], C.mul(xs[0], pts[1])), C.mul(xs[1], pts[2])), C.mul(xs[2], pts[3]))
+

@@ -47,6 +47,30 @@ def test_port_covers_the_slice():
         "csrc/k1_mont_mul.cu",
         "csrc/k2_butterfly.cu",
         "csrc/k3_sw_add.cu",
+        # the sale (second slice)
+        "ops/mont_mma.py",
+        "ops/field_mul.py",
+        "ops/merkle.py",
+        "circuits/sample_entries_circuit.py",
+        "zkcp/keccak.py",
+        "zkcp/rlp.py",
+        "zkcp/aes.py",
+        "zkcp/secp.py",
+        "zkcp/wallet.py",
+        "zkcp/config.py",
+        "zkcp/ethereum.py",
+        "zkcp/verifiable_encryption.py",
+        "zkcp/sample_entries.py",
+        "zkcp/cipher_host.py",
+        "zkcp/seller.py",
+        "zkcp/buyer.py",
+        "zkcp/server.py",
+        "zkcp/client.py",
+        "zkcp/cli.py",
+        "csrc/k5_mma.cuh",
+        "csrc/k5a_mont_mul_mma.cu",
+        "csrc/k5b_butterfly_mma.cu",
+        "csrc/k5c_sw_add_mma.cu",
     ):
         assert (PORT / rel).exists(), rel
 
@@ -56,6 +80,11 @@ def _entry_points():
     from contangle_zkcp_tpu_torch.fields.fp import Fp
     from contangle_zkcp_tpu_torch.groth16 import groth16, convert
     from contangle_zkcp_tpu_torch.ops.ntt import NTT
+    from contangle_zkcp_tpu_torch.ops.merkle import build_tree_device
+    from contangle_zkcp_tpu_torch.zkcp.buyer import Buyer
+    from contangle_zkcp_tpu_torch.zkcp.sample_entries import ZkSampleEntries
+    from contangle_zkcp_tpu_torch.zkcp.seller import Seller
+    from contangle_zkcp_tpu_torch.zkcp.verifiable_encryption import ZkVerifiableEncryption
     from contangle_zkcp_tpu_torch.zkcp.zk_encryption import ZkEncryption
 
     return [
@@ -72,10 +101,33 @@ def _entry_points():
         Fp.zeros,
         Fp.one_mont,
         Fp.broadcast_const,
+        ZkSampleEntries.__init__,
+        ZkSampleEntries.new_verifier,
+        ZkVerifiableEncryption.__init__,
+        ZkVerifiableEncryption.new_verifier,
+        Seller.__init__,
+        Buyer.__init__,
+        build_tree_device,
     ]
 
 
-@pytest.mark.parametrize("idx", range(13))
+def test_kernel_list_names_every_source():
+    """Every kernel the launch counters know has its source in csrc/."""
+    from contangle_zkcp_tpu_torch.ops import cuda_lib
+
+    text = "".join(p.read_text() for p in (PORT / "csrc").glob("*.cu"))
+    for name in cuda_lib.KERNELS:
+        assert f'extern "C" int {name}(' in text, name
+
+
+def test_cli_device_defaults_to_cuda():
+    from contangle_zkcp_tpu_torch.zkcp import cli
+
+    for argv in (["compile"], ["sell", "--data", "x"], ["buy"]):
+        assert cli.parser().parse_args(argv).device == "cuda", argv[0]
+
+
+@pytest.mark.parametrize("idx", range(20))
 def test_entry_points_default_to_cuda(idx):
     fn = _entry_points()[idx]
     assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
