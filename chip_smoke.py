@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--blocks N] [--sale-blocks N] [--seed S]
+    python3 chip_smoke.py [--blocks N] [--sale-blocks N] [--seed S] [--kernels-only]
 
 Phases, one line each as it finishes:
   1. the device: name, torch and CUDA versions, nvidia-smi name and
@@ -11,7 +11,9 @@ Phases, one line each as it finishes:
   3. each kernel against its plain torch twin on the card, exactly equal,
      at the main path's shapes, with times (CUDA events) and bounds; K4
      and the tensor-core kernels K5a-K5c also equal to K1/K2/K3 on the
-     same inputs;
+     same inputs; the point adds K3 and K5c at n = 2^16 and 2^20, on
+     points of the curve and on arbitrary triples, with ptxas's registers
+     and spills for them (`--kernels-only` stops here);
   4. a 256-point G1 MSM on the card against the exact host sum;
   5. a small reference: the toy Groth16 circuit of tests/test_groth16.py
      proves to the JAX package's pinned golden bytes;
@@ -40,6 +42,7 @@ import hashlib
 import json
 import os
 import random
+import re
 import shutil
 import subprocess
 import sys
@@ -183,6 +186,114 @@ def mma_ops_per_elem(F):
     return tiles * MMA_OPS / 8
 
 
+def k3_int_ops(F):
+    """Integer instructions of one K3 point add as csrc/fp_lazy.cuh and
+    k3_sw_add.cu issue them (selects and masks not counted, so a floor):
+    10 multiplies of 4W^2 + 5W - 2 (row 0: 2W products + a reduction of
+    2W + 2; rows 1..W-1: 4W + 4; the final shift W), 6 sums of canonical
+    inputs (W each), 16 lazy adds and 5 lazy subtracts (2W each: the
+    chain and its correction) and 3 canonicalisations (W): 40W^2 + 101W
+    - 20, 6,952 for W = 12."""
+    w = F.L // 2
+    return 10 * (4 * w * w + 5 * w - 2) + 6 * w + 21 * 2 * w + 3 * w
+
+
+def k5c_int_ops(F):
+    """Integer instructions of one K5c point add (csrc/k5c_sw_add_mma.cu):
+    10 a*b schoolbooks of 2W^2 + 2W - 1 and folds of 3W words (m: W, m p:
+    2W; one each, as mma_int_ops), and the adds of k3_int_ops: 20W^2 +
+    101W - 10, 4,082 for W = 12."""
+    w = F.L // 2
+    return 10 * (2 * w * w + 5 * w - 1) + 6 * w + 21 * 2 * w + 3 * w
+
+
+def ptxas_summary() -> str:
+    """Registers and spills of the point-add kernels, from the build's
+    `-Xptxas -v` report."""
+    from contangle_zkcp_tpu_torch.ops import cuda_lib
+
+    out, cur, spill = [], None, ""
+    for line in cuda_lib.ptxas_log().splitlines():
+        m = re.search(r"Compiling entry function '_Z\d+(k3_kernel|k5c_kernel)ILi(\d+)ELi(\d+)E", line)
+        if m:
+            cur = f"{m.group(1)}<{m.group(2)},{m.group(3)}>"
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        if cur and m:
+            spill = f"stack {m.group(1)} B, spill stores {m.group(2)} B"
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if cur and m:
+            out.append(f"{cur} {m.group(1)} registers, {spill}")
+            cur = None
+    return "; ".join(out) or "no report"
+
+
+def curve_batch(dev, C, Fq, n, rng):
+    """Valid G1 points in random projective scalings, with identity on
+    either side, P + P and P + (-P) among the pairs; returns (P, Q, a
+    host spot-check of the sums)."""
+    base, acc = [], None
+    for _ in range(256):
+        acc = C.add(acc, C.generator)
+        base.append(acc)
+    pts = dev.encode_points(base)
+    i1 = torch.from_numpy(rng.integers(0, 256, size=n)).cuda()
+    i2 = torch.from_numpy(rng.integers(0, 256, size=n)).cuda()
+    P = {k: v.index_select(0, i1) for k, v in pts.items()}
+    Q = {k: v.index_select(0, i2) for k, v in pts.items()}
+    Q["x"][: n // 8] = P["x"][: n // 8]  # P + P
+    Q["y"][: n // 8] = P["y"][: n // 8]
+    Q["x"][n // 8 : n // 4] = P["x"][n // 8 : n // 4]  # P + (-P)
+    Q["y"][n // 8 : n // 4] = Fq.neg(P["y"][n // 8 : n // 4])
+    for X in (P, Q):
+        lam = random_field(Fq, n, rng)
+        X.update({k: Fq.mul(X[k], lam) for k in ("x", "y", "z")})
+    ident = dev.identity((n // 8,))
+    for k in ("x", "y", "z"):
+        P[k][n // 4 : 3 * n // 8] = ident[k]  # O + Q
+        Q[k][3 * n // 8 : n // 2] = ident[k]  # P + O
+    Pt = tuple(P[k].contiguous() for k in ("x", "y", "z"))
+    Qt = tuple(Q[k].contiguous() for k in ("x", "y", "z"))
+    h1, h2 = i1.cpu().numpy(), i2.cpu().numpy()
+
+    def host_check(got):
+        sample = list(range(0, n, max(1, n // 64)))
+        idx = torch.tensor(sample, device=got[0].device)
+        R = dev.decode_points({k: g.index_select(0, idx) for k, g in zip("xyz", got)})
+        for r, j in zip(R, sample):  # against host affine math
+            p_ = None if n // 4 <= j < 3 * n // 8 else base[h1[j]]
+            if j < n // 8:
+                q_ = base[h1[j]]
+            elif j < n // 4:
+                q_ = C.neg(base[h1[j]])
+            elif 3 * n // 8 <= j < n // 2:
+                q_ = None
+            else:
+                q_ = base[h2[j]]
+            if r != C.add(p_, q_):
+                raise AssertionError(f"K3 pair {j} of {n}: wrong sum")
+        return f"host spot-check of {len(sample)} sums ok"
+
+    return Pt, Qt, host_check
+
+
+def adversarial_batch(F, n, rng):
+    """Arbitrary canonical triples (off the curve: the formula is defined
+    for every triple), each coordinate one of 0, 1, p - 1, p - 2 half of
+    the time, else uniform."""
+    special = torch.from_numpy(np.stack([
+        np.array(F.encode([v], mont=False, device="cpu")[0]) for v in (0, 1, F.p - 1, F.p - 2)
+    ])).cuda()
+    out = []
+    for _ in range(6):
+        x = random_field(F, n, rng)
+        pick = torch.from_numpy(rng.integers(0, 8, size=n)).cuda()
+        x = torch.where((pick < 4)[:, None], special[pick.clamp(max=3)], x)
+        out.append(x.contiguous())
+    return tuple(out[:3]), tuple(out[3:])
+
+
 def check(name, got, want, what):
     """Exact equality of two tensors or tuples; returns the max abs error."""
     got = got if isinstance(got, tuple) else (got,)
@@ -250,64 +361,47 @@ def check_kernels(seed: int):
             lambda: mont_mma.butterfly_mma(F, u, v, tw), lambda: mont_mma.butterfly_mma_plain(F, u, v, tw),
             100, 1, 5 * n * F.L * 4, n * (mma_int_ops(F) + 4 * w), n * mma_ops_per_elem(F), err=err)
 
-    # K3/K5c: valid G1 points in random projective scalings, with identity
-    # on either side, P + P and P + (-P) among the pairs
+    # K3/K5c at the MSMs' bucket width (2^16) and at a first tree level's
+    # (2^20): a curve batch (held to host sums too) and an adversarial one
+    # (arbitrary triples), each kernel equal to its twin and to the other
     Fq = fi.bls12_381_fq()
     C = ci.BLS12_381_G1
     dev = SWDevice(Fq, C, device="cuda")
-    base, acc = [], None
-    for _ in range(256):
-        acc = C.add(acc, C.generator)
-        base.append(acc)
-    n = 1 << 16
-    pts = dev.encode_points(base)
-    i1 = torch.from_numpy(rng.integers(0, 256, size=n)).cuda()
-    i2 = torch.from_numpy(rng.integers(0, 256, size=n)).cuda()
-    P = {k: v.index_select(0, i1) for k, v in pts.items()}
-    Q = {k: v.index_select(0, i2) for k, v in pts.items()}
-    Q["x"][: n // 8] = P["x"][: n // 8]  # P + P
-    Q["y"][: n // 8] = P["y"][: n // 8]
-    Q["x"][n // 8 : n // 4] = P["x"][n // 8 : n // 4]  # P + (-P)
-    Q["y"][n // 8 : n // 4] = Fq.neg(P["y"][n // 8 : n // 4])
-    for X in (P, Q):
-        lam = random_field(Fq, n, rng)
-        X.update({k: Fq.mul(X[k], lam) for k in ("x", "y", "z")})
-    ident = dev.identity((n // 8,))
-    for k in ("x", "y", "z"):
-        P[k][n // 4 : 3 * n // 8] = ident[k]  # O + Q
-        Q[k][3 * n // 8 : n // 2] = ident[k]  # P + O
     b3m = dev._b3m
-    Pt = tuple(P[k].contiguous() for k in ("x", "y", "z"))
-    Qt = tuple(Q[k].contiguous() for k in ("x", "y", "z"))
-    got = curve_add.sw_add(Fq, b3m, Pt, Qt)
-    err3 = check("K3", got, curve_add.rcb_add_plain(Fq, b3m, Pt, Qt), "twin")
-    R = dev.decode_points({"x": got[0][: n // 2], "y": got[1][: n // 2], "z": got[2][: n // 2]})
-    sample = list(range(0, n // 2, 997))
-    h1, h2 = i1.cpu().numpy(), i2.cpu().numpy()
-    for j in sample:  # spot-check against host affine math
-        p_ = None if n // 4 <= j < 3 * n // 8 else base[h1[j]]
-        if j < n // 8:
-            q_ = base[h1[j]]
-        elif j < n // 4:
-            q_ = C.neg(base[h1[j]])
-        elif 3 * n // 8 <= j < n // 2:
-            q_ = None
-        else:
-            q_ = base[h2[j]]
-        if R[j] != C.add(p_, q_):
-            raise AssertionError(f"K3 pair {j}: wrong sum")
-    w = Fq.L // 2
-    nbytes = 9 * n * Fq.L * 4
-    measure(recs, "k3", f"K3 k3_sw_add g1 n={n} (host spot-check of {len(sample)} sums ok)",
-            lambda: curve_add.sw_add(Fq, b3m, Pt, Qt), lambda: curve_add.rcb_add_plain(Fq, b3m, Pt, Qt),
-            40, 1, nbytes, n * (12 * 2 * madds(Fq) + 17 * 2 * w), err=err3)
-    k5 = curve_add.sw_add_mma(Fq, b3m, Pt, Qt)
-    err = check("K5c", k5, curve_add.rcb_add_mma_plain(Fq, b3m, Pt, Qt), "twin")
-    check("K5c", k5, got, "K3")
-    measure(recs, "k5c", f"K5c k5c_sw_add_mma g1 n={n} (and equal to K3)",
-            lambda: curve_add.sw_add_mma(Fq, b3m, Pt, Qt),
-            lambda: curve_add.rcb_add_mma_plain(Fq, b3m, Pt, Qt), 40, 1,
-            nbytes, n * (12 * mma_int_ops(Fq) + 17 * 2 * w), n * 12 * mma_ops_per_elem(Fq), err=err)
+    for n in (1 << 16, 1 << 20):
+        cases = (("curve", *curve_batch(dev, C, Fq, n, rng)),
+                 ("adversarial", *adversarial_batch(Fq, n, rng), None))
+        for kind, Pt, Qt, host_check in cases:
+            got = curve_add.sw_add(Fq, b3m, Pt, Qt)
+            err3 = check("K3", got, curve_add.rcb_add_plain(Fq, b3m, Pt, Qt), f"twin ({kind} n={n})")
+            note = host_check(got) if host_check else "no host check (not on the curve)"
+            k5 = curve_add.sw_add_mma(Fq, b3m, Pt, Qt)
+            err5 = check("K5c", k5, curve_add.rcb_add_mma_plain(Fq, b3m, Pt, Qt), f"twin ({kind} n={n})")
+            check("K5c", k5, got, f"K3 ({kind} n={n})")
+            log(f"[kernels] K3 and K5c {kind} batch n={n}: equal to their twins and each other; {note}")
+            if kind != "curve":
+                continue
+            nbytes = 9 * n * Fq.L * 4
+            if n == 1 << 16:
+                measure(recs, "k3", f"K3 k3_sw_add g1 n={n}",
+                        lambda: curve_add.sw_add(Fq, b3m, Pt, Qt),
+                        lambda: curve_add.rcb_add_plain(Fq, b3m, Pt, Qt),
+                        40, 1, nbytes, n * k3_int_ops(Fq), err=err3)
+                measure(recs, "k5c", f"K5c k5c_sw_add_mma g1 n={n} (and equal to K3)",
+                        lambda: curve_add.sw_add_mma(Fq, b3m, Pt, Qt),
+                        lambda: curve_add.rcb_add_mma_plain(Fq, b3m, Pt, Qt), 40, 1,
+                        nbytes, n * k5c_int_ops(Fq), n * 10 * mma_ops_per_elem(Fq), err=err5)
+            else:
+                for key, fn, ops, mma in (
+                    ("k3", lambda: curve_add.sw_add(Fq, b3m, Pt, Qt), k3_int_ops(Fq), 0.0),
+                    ("k5c", lambda: curve_add.sw_add_mma(Fq, b3m, Pt, Qt), k5c_int_ops(Fq),
+                     10 * mma_ops_per_elem(Fq)),
+                ):
+                    ms = cuda_ms(fn, 10, graph=True)
+                    bms, by = bound(nbytes, n * ops, n * mma)
+                    recs[key].update(ms_n2e20=ms, bound_ms_n2e20=bms)
+                    log(f"[kernels] {key.upper()} g1 n={n}: {ms:.4f} ms (bound {bms:.4f} ms by {by})")
+    log(f"[kernels] ptxas: {ptxas_summary()}")
     return recs
 
 
@@ -690,6 +784,8 @@ def kernel_line(recs, launches):
                    max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
                    bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
                    shape=shape, path=path or "none")
+        if "ms_n2e20" in r:
+            row.update(ms_n2e20=r["ms_n2e20"], bound_ms_n2e20=r["bound_ms_n2e20"])
         if fq_key:
             f = recs[fq_key]
             row.update(fq_ms=f["ms"], fq_plain_ms=f["plain_ms"], fq_bound_ms=f["bound_ms"])
@@ -703,6 +799,8 @@ def main() -> int:
     ap.add_argument("--sale-blocks", type=int, default=65536,
                     help="data blocks of the sale, a power of two (default 65536)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernel checks (a quick run; prints no result line)")
     args = ap.parse_args()
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -729,6 +827,9 @@ def main() -> int:
 
     log(f"[bound] integer rate: {set_int_rate()}; int8 tensor rate {INT8_MMA_OPS_PER_S:.4g} op/s")
     recs = check_kernels(args.seed)
+    if args.kernels_only:
+        log(f"[done] kernel checks only: wall {time.time() - t_start:.1f} s")
+        return 0
 
     t0 = time.time()
     note = msm_check(args.seed)

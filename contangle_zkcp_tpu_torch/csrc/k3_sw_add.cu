@@ -6,28 +6,35 @@
 // (curves/weierstrass.py SWDevice.add over a prime field), which is every
 // MSM bucket add, fixed-base setup add and the verifier's input MSM.
 //
-// What bounds it on an H100: 12 Montgomery multiplies (12 (2 W^2 + W)
-// multiply-adds, W = 12 words for BLS12-381 Fq) and ~17 modular add/subs
-// per point against 9 x 8W bytes (six coordinates read, three written):
-// about 8 multiply-add operations per byte, under the card's ~20, so by
-// the published peaks memory bounds it; in practice the long dependent
-// multiply chains and the register footprint (~15 live field elements)
-// limit occupancy first.
-// Design: one thread per point pair; the formula is straight-line code on
-// register-resident words (identity, doubling and inverses need no branch:
-// the law is complete), one read of the operands, one write of the sum.
+// What bounds it on an H100: the integer pipe.  Per point 10 general
+// Montgomery multiplies (4 W^2 + 5 W - 2 multiply-adds and adds each in
+// fp_lazy.cuh mul, W = 12 words for BLS12-381 Fq) and some 60 W words of
+// add/subtract chains, against 9 x 8W bytes read and written: about 8
+// instructions per byte, where the card does ~5 per byte of its memory
+// rate.  What keeps a kernel from it is latency: each CIOS row is a
+// serial carry chain, which only other warps can hide, so the registers
+// a thread holds (the live field elements) set the speed.
+// Design: one thread per point pair, straight-line code on registers
+// (identity, doubling and inverses need no branch: the law is complete);
+// values lazily reduced in [0, 2p) and each output made canonical once,
+// before its store (fp_lazy.cuh, which states the bounds); the two
+// multiplies by 3b an addition chain when 3b is 9 or 12 (template B3,
+// chosen by the wrapper from the curve constant); the formula ordered so
+// that at most nine field elements are live at once (two of the inputs
+// are loaded a second time rather than kept), and X3, Y3, Z3 each stored
+// as soon as it is known.
 
 #include <cuda_runtime.h>
 
-#include "mont.cuh"
+#include "fp_lazy.cuh"
 
 template <int W>
 struct CurveConst {
-  FieldConst<W> F;
-  uint32_t b3[W];  // 3*b in Montgomery form
+  LazyConst<W> F;
+  uint32_t b3[W];  // 3*b in Montgomery form (used when B3 = 0)
 };
 
-template <int W>
+template <int W, int B3>
 __global__ void __launch_bounds__(128)
 k3_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
           const int32_t* __restrict__ z1, const int32_t* __restrict__ x2,
@@ -36,91 +43,111 @@ k3_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
           int32_t* __restrict__ z3, long long n, CurveConst<W> C) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const FieldConst<W>& F = C.F;
+  const LazyConst<W>& F = C.F;
   const long long off = i * 2 * W;
-  uint32_t X1[W], Y1[W], Z1[W], X2[W], Y2[W], Z2[W];
-  load_elem<W>(x1 + off, X1);
-  load_elem<W>(y1 + off, Y1);
-  load_elem<W>(z1 + off, Z1);
-  load_elem<W>(x2 + off, X2);
-  load_elem<W>(y2 + off, Y2);
-  load_elem<W>(z2 + off, Z2);
-  uint32_t t0[W], t1[W], t2[W], t3[W], t4[W], s[W], q[W];
-  mont_mul<W>(X1, X2, t0, F);
-  mont_mul<W>(Y1, Y2, t1, F);
-  mont_mul<W>(Z1, Z2, t2, F);
-  // t3 = (X1+Y1)(X2+Y2) - (t0+t1) = X1Y2 + X2Y1
-  mod_add<W>(X1, Y1, s, F);
-  mod_add<W>(X2, Y2, q, F);
-  mont_mul<W>(s, q, t3, F);
-  mod_add<W>(t0, t1, s, F);
-  mod_sub<W>(t3, s, t3, F);
-  // t4 = (Y1+Z1)(Y2+Z2) - (t1+t2) = Y1Z2 + Y2Z1
-  mod_add<W>(Y1, Z1, s, F);
-  mod_add<W>(Y2, Z2, q, F);
-  mont_mul<W>(s, q, t4, F);
-  mod_add<W>(t1, t2, s, F);
-  mod_sub<W>(t4, s, t4, F);
-  // y3p = (X1+Z1)(X2+Z2) - (t0+t2) = X1Z2 + X2Z1
-  uint32_t y3p[W];
-  mod_add<W>(X1, Z1, s, F);
-  mod_add<W>(X2, Z2, q, F);
-  mont_mul<W>(s, q, y3p, F);
-  mod_add<W>(t0, t2, s, F);
-  mod_sub<W>(y3p, s, y3p, F);
-  uint32_t t2b[W], y3b[W];
-  mont_mul<W>(C.b3, t2, t2b, F);
-  mont_mul<W>(C.b3, y3p, y3b, F);
-  uint32_t Z3p[W], t1p[W], t0p[W];
-  mod_add<W>(t1, t2b, Z3p, F);
-  mod_sub<W>(t1, t2b, t1p, F);
-  mod_add<W>(t0, t0, t0p, F);
-  mod_add<W>(t0p, t0, t0p, F);  // 3 * X1X2
-  uint32_t m1[W], m2[W], out[W];
-  // X3 = t3*t1p - t4*y3b
-  mont_mul<W>(t4, y3b, m1, F);
-  mont_mul<W>(t3, t1p, m2, F);
-  mod_sub<W>(m2, m1, out, F);
-  store_elem<W>(x3 + off, out);
-  // Y3 = t1p*Z3p + y3b*t0p
-  mont_mul<W>(y3b, t0p, m1, F);
-  mont_mul<W>(t1p, Z3p, m2, F);
-  mod_add<W>(m2, m1, out, F);
-  store_elem<W>(y3 + off, out);
-  // Z3 = Z3p*t4 + t0p*t3
-  mont_mul<W>(t0p, t3, m1, F);
-  mont_mul<W>(Z3p, t4, m2, F);
-  mod_add<W>(m2, m1, out, F);
-  store_elem<W>(z3 + off, out);
+  uint32_t t0[W], t1[W], t2[W], t3[W], t4[W];
+  {
+    uint32_t a[W], b[W], c[W], d[W];
+    load_elem<W>(x1 + off, a);
+    load_elem<W>(x2 + off, b);
+    mul<W>(a, b, t0, F);  // X1 X2
+    load_elem<W>(y1 + off, c);
+    load_elem<W>(y2 + off, d);
+    mul<W>(c, d, t1, F);  // Y1 Y2
+    // t3 = (X1+Y1)(X2+Y2) - (t0+t1) = X1Y2 + X2Y1
+    add_nr<W>(a, c, a);
+    add_nr<W>(b, d, b);
+    mul<W>(a, b, t3, F);
+    add<W>(t0, t1, a, F);
+    sub<W>(t3, a, t3, F);
+    // t4 = (Y1+Z1)(Y2+Z2) - (t1+t2) = Y1Z2 + Y2Z1
+    load_elem<W>(z1 + off, a);
+    load_elem<W>(z2 + off, b);
+    add_nr<W>(c, a, c);
+    add_nr<W>(d, b, d);
+    mul<W>(c, d, t4, F);
+    mul<W>(a, b, t2, F);  // Z1 Z2
+    add<W>(t1, t2, c, F);
+    sub<W>(t4, c, t4, F);
+    // y3p = (X1+Z1)(X2+Z2) - (t0+t2) = X1Z2 + X2Z1, kept in t2's place
+    // once t2 has given 3b t2
+    reload_elem<W>(x1 + off, c);
+    reload_elem<W>(x2 + off, d);
+    add_nr<W>(c, a, c);
+    add_nr<W>(d, b, d);
+    mul<W>(c, d, a, F);
+    add<W>(t0, t2, b, F);
+    sub<W>(a, b, a, F);  // y3p
+    mul_b3<W, B3>(C.b3, t2, t2, F);  // t2b = 3b t2
+    mul_b3<W, B3>(C.b3, a, b, F);   // y3b = 3b y3p
+    // Z3p = t1 + t2b, t1p = t1 - t2b, t0p = 3 t0
+    add<W>(t1, t2, c, F);  // Z3p
+    sub<W>(t1, t2, t1, F);  // t1p
+    add<W>(t0, t0, t2, F);
+    add<W>(t2, t0, t0, F);  // t0p
+    // live: t0 = t0p, t1 = t1p, t3, t4, b = y3b, c = Z3p
+    // X3 = t3 t1p - t4 y3b
+    mul<W>(t3, t1, a, F);
+    mul<W>(t4, b, d, F);
+    sub<W>(a, d, a, F);
+    canon<W>(a, F);
+    store_elem<W>(x3 + off, a);
+    // Y3 = t1p Z3p + y3b t0p
+    mul<W>(t1, c, a, F);
+    mul<W>(b, t0, d, F);
+    add<W>(a, d, a, F);
+    canon<W>(a, F);
+    store_elem<W>(y3 + off, a);
+    // Z3 = Z3p t4 + t0p t3
+    mul<W>(c, t4, a, F);
+    mul<W>(t0, t3, d, F);
+    add<W>(a, d, a, F);
+    canon<W>(a, F);
+    store_elem<W>(z3 + off, a);
+  }
 }
 
-template <int W>
+template <int W, int B3>
 static int launch_k3(const void* const* in, void* const* out, long long n,
                      const uint32_t* p, uint32_t n0, const uint32_t* b3,
                      cudaStream_t s) {
   const int block = 128;
   CurveConst<W> C;
-  C.F = make_field<W>(p, n0);
+  C.F = make_lazy<W>(p, n0);
   for (int j = 0; j < W; ++j) C.b3[j] = b3[j];
   if (n > 0)
-    k3_kernel<W><<<grid_for(n, block), block, 0, s>>>(
+    k3_kernel<W, B3><<<grid_for(n, block), block, 0, s>>>(
         (const int32_t*)in[0], (const int32_t*)in[1], (const int32_t*)in[2],
         (const int32_t*)in[3], (const int32_t*)in[4], (const int32_t*)in[5],
         (int32_t*)out[0], (int32_t*)out[1], (int32_t*)out[2], n, C);
   return (int)cudaGetLastError();
 }
 
+template <int W>
+static int launch_k3_b3(const void* const* in, void* const* out, long long n,
+                        const uint32_t* p, uint32_t n0, const uint32_t* b3, int b3small,
+                        cudaStream_t s) {
+  switch (b3small) {
+    case 0: return launch_k3<W, 0>(in, out, n, p, n0, b3, s);
+    case 9: return launch_k3<W, 9>(in, out, n, p, n0, b3, s);
+    case 12: return launch_k3<W, 12>(in, out, n, p, n0, b3, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// b3 is 3b R mod p (words); b3small is the integer 3b when it is 9 or 12,
+// else 0.
 extern "C" int k3_sw_add(const void* x1, const void* y1, const void* z1,
                          const void* x2, const void* y2, const void* z2,
                          void* x3, void* y3, void* z3, long long n,
                          int nwords, const uint32_t* p, uint32_t n0,
-                         const uint32_t* b3, void* stream) {
+                         const uint32_t* b3, int b3small, void* stream) {
   const void* in[6] = {x1, y1, z1, x2, y2, z2};
   void* out[3] = {x3, y3, z3};
   cudaStream_t s = (cudaStream_t)stream;
   switch (nwords) {
-    case 8: return launch_k3<8>(in, out, n, p, n0, b3, s);
-    case 12: return launch_k3<12>(in, out, n, p, n0, b3, s);
+    case 8: return launch_k3_b3<8>(in, out, n, p, n0, b3, b3small, s);
+    case 12: return launch_k3_b3<12>(in, out, n, p, n0, b3, b3small, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -72,7 +72,8 @@ def lib_path() -> str:
 
 def build(verbose: bool = False) -> str:
     """Compile every kernel source with its own nvcc, all started together,
-    then link them into one library (no-op when already built)."""
+    then link them into one library (no-op when already built); ptxas's
+    report on each kernel is kept beside it (`ptxas_log`)."""
     out = lib_path()
     if os.path.exists(out):
         return out
@@ -100,6 +101,8 @@ def build(verbose: bool = False) -> str:
                              capture_output=True, text=True, timeout=300)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+        with open(out + ".ptxas.log", "w") as f:
+            f.write("".join(logs))
         os.replace(tmp, out)
     finally:
         for proc in procs:
@@ -112,6 +115,12 @@ def build(verbose: bool = False) -> str:
     if verbose:
         print("".join(logs), flush=True)
     return out
+
+
+def ptxas_log() -> str:
+    """What `-Xptxas -v` said when the current library was built."""
+    path = build() + ".ptxas.log"
+    return open(path).read() if os.path.exists(path) else ""
 
 
 def lib():
@@ -127,11 +136,11 @@ def lib():
         )
         so.k1_mont_mul.argtypes = [vp, vp, vp, ll, i32, vp, u32, vp]
         so.k2_butterfly.argtypes = [vp, vp, vp, vp, vp, ll, i32, vp, u32, vp]
-        so.k3_sw_add.argtypes = [vp] * 9 + [ll, i32, vp, u32, vp, vp]
+        so.k3_sw_add.argtypes = [vp] * 9 + [ll, i32, vp, u32, vp, i32, vp]
         so.k4_field_mul.argtypes = [vp, vp, vp, ll, i32, vp, u32, vp]
         so.k5a_mont_mul_mma.argtypes = [vp, vp, vp, ll, i32, vp, u32, vp, vp]
         so.k5b_butterfly_mma.argtypes = [vp, vp, vp, vp, vp, ll, i32, vp, u32, vp, vp]
-        so.k5c_sw_add_mma.argtypes = [vp] * 9 + [ll, i32, vp, u32, vp, vp, vp]
+        so.k5c_sw_add_mma.argtypes = [vp] * 9 + [ll, i32, vp, u32, vp, i32, vp, vp]
         for name in KERNELS:
             getattr(so, name).restype = ctypes.c_int
         _LIB = so

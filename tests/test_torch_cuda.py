@@ -54,11 +54,9 @@ def test_k2_equals_twin(card, n):
     assert torch.equal(hi.cpu(), phi) and torch.equal(lo.cpu(), plo)
 
 
-@pytest.mark.parametrize("n", [1, 5, 300])
-def test_k3_equals_twin_and_host(card, n):
-    Fq = tfi.bls12_381_fq()
-    C = ci.BLS12_381_G1
-    dev = SWDevice(Fq, C, device=card)
+def curve_pairs(C, n):
+    """n pairs of G1 points: identity on the left first, then P + (-P) and
+    P + P among them (n > 2)."""
     pts, acc = [], None
     for _ in range(n + 2):
         acc = C.add(acc, C.generator)
@@ -68,14 +66,67 @@ def test_k3_equals_twin_and_host(card, n):
     if n > 2:
         right[1] = C.neg(left[1])  # P + (-P)
         right[2] = left[2]  # P + P
+    return left, right
+
+
+def arbitrary(F, n, seed):
+    """Two (x, y, z) triples of (n, L) canonical limb planes, off the curve,
+    each coordinate 0, 1, p - 1 or p - 2 half of the time."""
+    rng = np.random.default_rng(seed)
+    special = F.encode([0, 1, F.p - 1, F.p - 2], mont=False, device="cpu")
+    planes = []
+    for k in range(6):
+        x = rand(F, n, seed + k)
+        pick = torch.from_numpy(rng.integers(0, 8, size=n))
+        planes.append(torch.where((pick < 4)[:, None], special[pick.clamp(max=3)], x).contiguous())
+    return tuple(planes[:3]), tuple(planes[3:])
+
+
+def point_add_cases(F, C, n, card):
+    """(P, Q) on the card: the curve pairs, then the arbitrary triples."""
+    dev = SWDevice(F, C, device=card)
+    left, right = curve_pairs(C, n)
     P, Q = dev.encode_points(left), dev.encode_points(right)
-    got = curve_add.sw_add(Fq, dev._b3m, tuple(P[k] for k in "xyz"), tuple(Q[k] for k in "xyz"))
-    want = curve_add.rcb_add_plain(
-        Fq, dev._b3m, tuple(P[k].cpu() for k in "xyz"), tuple(Q[k].cpu() for k in "xyz")
-    )
-    for g, w in zip(got, want):
-        assert torch.equal(g.cpu(), w)
-    assert dev.decode_points(dict(zip("xyz", got))) == [C.add(a, b) for a, b in zip(left, right)]
+    yield tuple(P[k] for k in "xyz"), tuple(Q[k] for k in "xyz"), (dev, left, right)
+    P, Q = arbitrary(F, n, n)
+    yield tuple(t.to(card) for t in P), tuple(t.to(card) for t in Q), None
+
+
+@pytest.mark.parametrize("n", [1, 5, 300, 4097])
+def test_k3_equals_twin_and_host(card, n):
+    Fq = tfi.bls12_381_fq()
+    C = ci.BLS12_381_G1
+    b3m = SWDevice(Fq, C, device=card)._b3m
+    for Pt, Qt, host in point_add_cases(Fq, C, n, card):
+        got = curve_add.sw_add(Fq, b3m, Pt, Qt)
+        want = curve_add.rcb_add_plain(Fq, b3m, tuple(t.cpu() for t in Pt), tuple(t.cpu() for t in Qt))
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+        if host:
+            dev, left, right = host
+            assert dev.decode_points(dict(zip("xyz", got))) == [C.add(a, b) for a, b in zip(left, right)]
+
+
+@pytest.mark.parametrize("kernel", ["k3", "k5c"])
+@pytest.mark.parametrize("chain", [True, False])
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+def test_point_adds_both_widths_and_b3_paths(card, monkeypatch, curve, chain, kernel):
+    """K3 and K5c at W = 8 (BN254, 3b = 9) and W = 12 (BLS12-381, 3b = 12),
+    with the addition chain for 3b and with the general multiply by 3b R."""
+    F, C = {"bn254": (tfi.bn254_fq(), ci.BN254_G1),
+            "bls12_381": (tfi.bls12_381_fq(), ci.BLS12_381_G1)}[curve]
+    if not chain:
+        monkeypatch.setattr(curve_add, "SMALL_B3", ())
+        monkeypatch.setattr(F, "_kernel_b3", {}, raising=False)  # the field's cached choice
+    b3m = SWDevice(F, C, device=card)._b3m
+    assert (curve_add.kernel_b3(F, b3m)[1] != 0) == chain
+    add, twin = {"k3": (curve_add.sw_add, curve_add.rcb_add_plain),
+                 "k5c": (curve_add.sw_add_mma, curve_add.rcb_add_mma_plain)}[kernel]
+    for Pt, Qt, _ in point_add_cases(F, C, 300, card):
+        got = add(F, b3m, Pt, Qt)
+        want = twin(F, b3m, tuple(t.cpu() for t in Pt), tuple(t.cpu() for t in Qt))
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
 
 
 def test_wrapper_operand_checks(card):
@@ -127,30 +178,22 @@ def test_k5b_equals_twin_and_k2(card, n):
     assert torch.equal(hi, khi) and torch.equal(lo, klo)
 
 
-@pytest.mark.parametrize("n", [1, 5, 300])
+@pytest.mark.parametrize("n", [1, 5, 300, 4097])
 def test_k5c_equals_twin_and_k3(card, n):
     Fq = tfi.bls12_381_fq()
     C = ci.BLS12_381_G1
-    dev = SWDevice(Fq, C, device=card)
-    pts, acc = [], None
-    for _ in range(n + 2):
-        acc = C.add(acc, C.generator)
-        pts.append(acc)
-    left = [None] + pts[1:n]
-    right = pts[2 : n + 2] if n > 1 else [pts[0]]
-    if n > 2:
-        right[1] = C.neg(left[1])
-        right[2] = left[2]
-    P, Q = dev.encode_points(left), dev.encode_points(right)
-    Pt, Qt = tuple(P[k] for k in "xyz"), tuple(Q[k] for k in "xyz")
-    got = curve_add.sw_add_mma(Fq, dev._b3m, Pt, Qt)
-    want = curve_add.rcb_add_mma_plain(
-        Fq, dev._b3m, tuple(t.cpu() for t in Pt), tuple(t.cpu() for t in Qt)
-    )
-    k3 = curve_add.sw_add(Fq, dev._b3m, Pt, Qt)
-    for g, w, k in zip(got, want, k3):
-        assert torch.equal(g.cpu(), w) and torch.equal(g, k)
-    assert dev.decode_points(dict(zip("xyz", got))) == [C.add(a, b) for a, b in zip(left, right)]
+    b3m = SWDevice(Fq, C, device=card)._b3m
+    for Pt, Qt, host in point_add_cases(Fq, C, n, card):
+        got = curve_add.sw_add_mma(Fq, b3m, Pt, Qt)
+        want = curve_add.rcb_add_mma_plain(
+            Fq, b3m, tuple(t.cpu() for t in Pt), tuple(t.cpu() for t in Qt)
+        )
+        k3 = curve_add.sw_add(Fq, b3m, Pt, Qt)
+        for g, w, k in zip(got, want, k3):
+            assert torch.equal(g.cpu(), w) and torch.equal(g, k)
+        if host:
+            dev, left, right = host
+            assert dev.decode_points(dict(zip("xyz", got))) == [C.add(a, b) for a, b in zip(left, right)]
 
 
 def test_mxu_switch_routes_to_k5(card, monkeypatch):
