@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--blocks N] [--sale-blocks N] [--seed S] [--kernels-only]
+    python3 chip_smoke.py [--blocks N] [--sale-blocks N] [--plonk-rows N] [--seed S] [--kernels-only]
 
 Phases, one line each as it finishes:
   1. the device: name, torch and CUDA versions, nvidia-smi name and
@@ -12,8 +12,10 @@ Phases, one line each as it finishes:
      at the main path's shapes, with times (CUDA events) and bounds; K4
      and the tensor-core kernels K5a-K5c also equal to K1/K2/K3 on the
      same inputs; the point adds K3 and K5c at n = 2^16 and 2^20, on
-     points of the curve and on arbitrary triples, with ptxas's registers
-     and spills for them (`--kernels-only` stops here);
+     points of the curve and on arbitrary triples; the PLONKish path's
+     shapes (K1/K2 on Pasta Fp, K3/K5c on Vesta and Pallas in the strict
+     arithmetic) and the W = 24 multiplies and butterflies (BW6-761 Fq);
+     with ptxas's registers and spills (`--kernels-only` stops here);
   4. a 256-point G1 MSM on the card against the exact host sum;
   5. a small reference: the toy Groth16 circuit of tests/test_groth16.py
      proves to the JAX package's pinned golden bytes;
@@ -29,7 +31,16 @@ Phases, one line each as it finishes:
      decrypt), over the local HTTP server and client, every proof real
      Groth16; the plaintext must come back byte for byte, the seller must
      be paid, a tampered adaptor signature must be refused, and K5a-K5c
-     must launch while K1-K3 do not.
+     must launch while K1-K3 do not;
+  8. the PLONKish path held exactly to the CPU: the n = 128 ElGamal
+     circuit's key and proof (one blinding seed) on the card equal the
+     same calls on the CPU (the kernels' twins), and an IPA(1024)
+     opening with the device generator fold equals the host fold's;
+  9. the halo2-path PLONKish prover in the default configuration: the
+     ElGamal circuit over Pallas at 4,096 rows (the reference's k = 12),
+     setup (8,192 IPA generators), two proves, verify, a tampered
+     instance refused, with K1-K3's launch counts (K3 on Vesta in the
+     strict arithmetic).
 Prints the kernels' JSON line and the card's name and power limit, then
 `{"ok": true, "device": {...}}` as the last line.  Any failure raises and
 exits nonzero; without a CUDA device it exits nonzero and prints no result.
@@ -207,16 +218,44 @@ def k5c_int_ops(F):
     return 10 * (2 * w * w + 5 * w - 1) + 6 * w + 21 * 2 * w + 3 * w
 
 
+def k3_strict_int_ops(F):
+    """Integer instructions of one K3 point add in the strict arithmetic
+    (csrc/fp_lazy.cuh S = true, mont.cuh's operations), counted as
+    k3_int_ops counts: 12 multiplies (3b = 15 takes the general multiply
+    twice) of 4W^2 + 5W (the two W^2 multiply-add rows, each row's top
+    words and m, the final subtract and select), and 19 modular adds and
+    subtracts of 3W (the chain, the correction chain, the select):
+    48W^2 + 117W, 4,008 for W = 8 (the lazy count's formula gives 3,348
+    there)."""
+    w = F.L // 2
+    return 12 * (4 * w * w + 5 * w) + 19 * 3 * w
+
+
+def k5c_strict_int_ops(F):
+    """K5c's integer instructions in the strict arithmetic: 12 a*b
+    schoolbooks and folds (as k5c_int_ops), a conditional subtract of p
+    after each (2W), and the 19 modular adds and subtracts of
+    k3_strict_int_ops."""
+    w = F.L // 2
+    return 12 * (2 * w * w + 5 * w - 1) + 12 * 2 * w + 19 * 3 * w
+
+
 def ptxas_summary() -> str:
-    """Registers and spills of the point-add kernels, from the build's
+    """Registers and spills of the point-add kernels (every instance) and
+    of the W = 24 instances of K1, K2, K5a and K5b, from the build's
     `-Xptxas -v` report."""
     from contangle_zkcp_tpu_torch.ops import cuda_lib
 
     out, cur, spill = [], None, ""
     for line in cuda_lib.ptxas_log().splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+(k3_kernel|k5c_kernel)ILi(\d+)ELi(\d+)E", line)
+        m = re.search(r"Compiling entry function '_Z\d+(k3_kernel|k5c_kernel)ILi(\d+)ELi(\d+)ELb([01])E", line)
         if m:
-            cur = f"{m.group(1)}<{m.group(2)},{m.group(3)}>"
+            arith = "strict" if m.group(4) == "1" else "lazy"
+            cur = f"{m.group(1)}<{m.group(2)},{m.group(3)},{arith}>"
+            continue
+        m = re.search(r"Compiling entry function '_Z\d+(k1_kernel|k2_kernel|k5a_kernel|k5b_kernel)ILi(24)E", line)
+        if m:
+            cur = f"{m.group(1)}<{m.group(2)}>"
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
         if cur and m:
@@ -401,8 +440,142 @@ def check_kernels(seed: int):
                     bms, by = bound(nbytes, n * ops, n * mma)
                     recs[key].update(ms_n2e20=ms, bound_ms_n2e20=bms)
                     log(f"[kernels] {key.upper()} g1 n={n}: {ms:.4f} ms (bound {bms:.4f} ms by {by})")
+    check_pasta(recs, rng)
+    check_bw6(recs, rng)
     log(f"[kernels] ptxas: {ptxas_summary()}")
     return recs
+
+
+def check_pasta(recs, rng):
+    """The PLONKish path's shapes: K1 on Pasta Fp at the k = 12 quotient's
+    ext * n = 2^15 rows, K2 at its largest NTT (2^14 butterflies), and
+    the point adds in the strict arithmetic (4p > R): K3 and K5c on Vesta
+    and Pallas, on curve batches (held to host sums) and adversarial
+    triples, equal to their twins and each other; K3 timed at n = 4,096
+    (the IPA's first fold round) and 2^16, K5c at 2^16."""
+    from contangle_zkcp_tpu_torch.curves import instances as ci
+    from contangle_zkcp_tpu_torch.curves.weierstrass import SWDevice
+    from contangle_zkcp_tpu_torch.fields import instances as fi
+    from contangle_zkcp_tpu_torch.ops import curve_add, mont
+
+    F, n = fi.pasta_fp(), 1 << 15
+    a, b = random_field(F, n, rng), random_field(F, n, rng)
+    err = check("K1", mont.mont_mul(F, a, b), mont.mont_mul_plain(F, a, b), "twin (pasta_fp)")
+    measure(recs, "k1_pasta_fp", f"K1 k1_mont_mul pasta_fp n={n}",
+            lambda: mont.mont_mul(F, a, b), lambda: mont.mont_mul_plain(F, a, b), 100, 1,
+            3 * n * F.L * 4, 2 * n * madds(F), err=err, shape="pasta_fp n=2^15")
+    n //= 2
+    w = F.L // 2
+    u, v, tw = (random_field(F, n, rng) for _ in range(3))
+    err = check("K2", mont.butterfly(F, u, v, tw), mont.butterfly_plain(F, u, v, tw), "twin (pasta_fp)")
+    measure(recs, "k2_pasta_fp", f"K2 k2_butterfly pasta_fp n={n}",
+            lambda: mont.butterfly(F, u, v, tw), lambda: mont.butterfly_plain(F, u, v, tw), 100, 1,
+            5 * n * F.L * 4, n * (2 * madds(F) + 4 * w), err=err, shape="pasta_fp n/2=2^14")
+
+    for cname, C, Fq, sizes in (("vesta", ci.VESTA, fi.pasta_fq(), (1 << 12, 1 << 16)),
+                                ("pallas", ci.PALLAS, fi.pasta_fp(), (1 << 12,))):
+        dev = SWDevice(Fq, C, device="cuda")
+        b3m = dev._b3m
+        if curve_add.kernel_b3(Fq, b3m)[2] != 1:
+            raise AssertionError(f"{cname}: the strict arithmetic was not picked")
+        for n in sizes:
+            cases = (("curve", *curve_batch(dev, C, Fq, n, rng)),
+                     ("adversarial", *adversarial_batch(Fq, n, rng), None))
+            for kind, Pt, Qt, host_check in cases:
+                got = curve_add.sw_add(Fq, b3m, Pt, Qt)
+                err3 = check("K3", got, curve_add.rcb_add_plain(Fq, b3m, Pt, Qt),
+                             f"twin ({cname} {kind} n={n})")
+                note = host_check(got) if host_check else "no host check (not on the curve)"
+                k5 = curve_add.sw_add_mma(Fq, b3m, Pt, Qt)
+                err5 = check("K5c", k5, curve_add.rcb_add_mma_plain(Fq, b3m, Pt, Qt),
+                             f"twin ({cname} {kind} n={n})")
+                check("K5c", k5, got, f"K3 ({cname} {kind} n={n})")
+                log(f"[kernels] K3 and K5c strict, {cname} {kind} batch n={n}: equal to their "
+                    f"twins and each other; {note}")
+                if kind != "curve" or cname != "vesta":
+                    continue
+                nbytes = 9 * n * Fq.L * 4
+                tag = f"2e{n.bit_length() - 1}"
+                measure(recs, f"k3_vesta_{tag}", f"K3 k3_sw_add vesta (strict) n={n}",
+                        lambda: curve_add.sw_add(Fq, b3m, Pt, Qt),
+                        lambda: curve_add.rcb_add_plain(Fq, b3m, Pt, Qt), 40, 1,
+                        nbytes, n * k3_strict_int_ops(Fq), err=err3,
+                        shape=f"vesta n=2^{n.bit_length() - 1}")
+                if n == 1 << 12:
+                    fold_launch_cost(recs, dev, Pt, Qt)
+                if n == 1 << 16:
+                    measure(recs, "k5c_vesta", f"K5c k5c_sw_add_mma vesta (strict) n={n}",
+                            lambda: curve_add.sw_add_mma(Fq, b3m, Pt, Qt),
+                            lambda: curve_add.rcb_add_mma_plain(Fq, b3m, Pt, Qt), 40, 1,
+                            nbytes, n * k5c_strict_int_ops(Fq), n * 12 * mma_ops_per_elem(Fq),
+                            err=err5, shape="vesta n=2^16")
+
+
+def fold_launch_cost(recs, dev, Pt, Qt):
+    """What one K3 launch of the IPA's generator fold costs at its sizes
+    (h = 256 .. 4,096 points on Vesta): the device time by CUDA-graph
+    replay beside the wall time of one `SWDevice.add` call (operand
+    checks, allocation, launch), as the fold's ladders make them."""
+    out = {}
+    for h in (256, 1024, 4096):
+        P = {k: t[:h] for k, t in zip("xyz", Pt)}
+        Q = {k: t[:h] for k, t in zip("xyz", Qt)}
+        dms = cuda_ms(lambda: dev.add(P, Q), 100, graph=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            dev.add(P, Q)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 500 * 1e3
+        out[h] = {"device_ms": dms, "wall_ms": wall}
+        log(f"[kernels] K3 vesta fold size h={h}: device {dms:.4f} ms, wall per SWDevice.add "
+            f"{wall:.4f} ms")
+    recs["k3_fold"] = out
+
+
+def check_bw6(recs, rng):
+    """The multiplies and butterflies at W = 24 (BW6-761 Fq, 761 bits),
+    n = 2^16: K1, K4 and K5a against their twins and each other, K2 and
+    K5b likewise."""
+    from contangle_zkcp_tpu_torch.fields import instances as fi
+    from contangle_zkcp_tpu_torch.ops import field_mul, mont, mont_mma
+
+    F, n = fi.bw6_761_fq(), 1 << 16
+    w = F.L // 2
+    a, b = random_field(F, n, rng), random_field(F, n, rng)
+    k1 = mont.mont_mul(F, a, b)
+    err = check("K1", k1, mont.mont_mul_plain(F, a, b), "twin (bw6_761_fq)")
+    nbytes = 3 * n * F.L * 4
+    measure(recs, "k1_bw6", f"K1 k1_mont_mul bw6_761_fq n={n}",
+            lambda: mont.mont_mul(F, a, b), lambda: mont.mont_mul_plain(F, a, b), 100, 1,
+            nbytes, 2 * n * madds(F), err=err, shape="bw6_761_fq n=2^16")
+    eng = field_mul.make(F)
+    err = check("K4", eng.mul(a, b), eng.mul_reference(a, b), "twin (bw6_761_fq)")
+    check("K4", eng.mul(a, b), k1, "K1 (bw6_761_fq)")
+    measure(recs, "k4_bw6", f"K4 k4_field_mul bw6_761_fq n={n} (and equal to K1)",
+            lambda: eng.mul(a, b), lambda: eng.mul_reference(a, b), 100, 1,
+            nbytes, 2 * n * madds(F), err=err, shape="bw6_761_fq n=2^16")
+    k5 = mont_mma.mont_mul_mma(F, a, b)
+    err = check("K5a", k5, mont_mma.mont_mul_mma_plain(F, a, b), "twin (bw6_761_fq)")
+    check("K5a", k5, k1, "K1 (bw6_761_fq)")
+    measure(recs, "k5a_bw6", f"K5a k5a_mont_mul_mma bw6_761_fq n={n} (and equal to K1)",
+            lambda: mont_mma.mont_mul_mma(F, a, b), lambda: mont_mma.mont_mul_mma_plain(F, a, b),
+            100, 1, nbytes, n * mma_int_ops(F), n * mma_ops_per_elem(F), err=err,
+            shape="bw6_761_fq n=2^16")
+    u, v, tw = (random_field(F, n, rng) for _ in range(3))
+    k2 = mont.butterfly(F, u, v, tw)
+    err = check("K2", k2, mont.butterfly_plain(F, u, v, tw), "twin (bw6_761_fq)")
+    measure(recs, "k2_bw6", f"K2 k2_butterfly bw6_761_fq n={n}",
+            lambda: mont.butterfly(F, u, v, tw), lambda: mont.butterfly_plain(F, u, v, tw), 100, 1,
+            5 * n * F.L * 4, n * (2 * madds(F) + 4 * w), err=err, shape="bw6_761_fq n/2=2^16")
+    k5 = mont_mma.butterfly_mma(F, u, v, tw)
+    err = check("K5b", k5, mont_mma.butterfly_mma_plain(F, u, v, tw), "twin (bw6_761_fq)")
+    check("K5b", k5, k2, "K2 (bw6_761_fq)")
+    measure(recs, "k5b_bw6", f"K5b k5b_butterfly_mma bw6_761_fq n={n} (and equal to K2)",
+            lambda: mont_mma.butterfly_mma(F, u, v, tw),
+            lambda: mont_mma.butterfly_mma_plain(F, u, v, tw), 100, 1,
+            5 * n * F.L * 4, n * (mma_int_ops(F) + 4 * w), n * mma_ops_per_elem(F), err=err,
+            shape="bw6_761_fq n/2=2^16")
 
 
 # --------------------------------------------------------------------- msm
@@ -752,40 +925,167 @@ def run_sale(n_blocks: int, seed: int):
     return launches, times
 
 
+# ------------------------------------------------------------------ plonk
+def elgamal_instance(n: int, seed: int):
+    """The reference's ElGamal circuit over Pallas (benchmarks/
+    drive_plonk_k12.py) synthesized at n rows: (meta, assignment,
+    instances, tampered instances)."""
+    from contangle_zkcp_tpu_torch.fields import instances as fi
+    from contangle_zkcp_tpu_torch.plonkish import (
+        Assignment, CircuitMeta, ElGamalCircuit, ElGamalPallas,
+    )
+
+    scheme = ElGamalPallas()
+    rng = random.Random(seed)
+    _, pk = scheme.keygen(rng)
+    r = rng.randrange(1, scheme.curve.order)
+    m = rng.randrange(scheme.curve.p)
+    (c1, c2), s = scheme.encrypt(pk, m, r)
+    meta = CircuitMeta(p=fi.PASTA_P)
+    circ = ElGamalCircuit.build(meta, s, c1, m, c2)
+    asg = Assignment(meta, n)
+    circ.synthesize(meta, asg)
+    return meta, asg, [[c1[0], c1[1], c2]], [[c1[0], c1[1], (c2 + 1) % fi.PASTA_P]]
+
+
+def plonk_exact(seed: int) -> str:
+    """The card's PLONKish path held exactly to the same code on the CPU
+    (the kernels' twins): the n = 128 ElGamal key and proof, with one
+    blinding seed, must be equal field for field.  Its IPA has 256
+    generators, so it folds them on the host; one opening of IPA(1024)
+    on the card, whose generator fold runs on the device (255-bit ladders
+    of K3 on Vesta), must equal the host fold's (the twins take minutes
+    for that fold on a CPU; tests/test_torch_plonk_jax.py holds them to
+    the reference's host fold)."""
+    from contangle_zkcp_tpu_torch.fields import instances as fi
+    from contangle_zkcp_tpu_torch.plonkish.convert import fields
+    from contangle_zkcp_tpu_torch.plonkish.ipa import IPA
+    from contangle_zkcp_tpu_torch.plonkish.prover import PlonkSystem
+
+    meta, asg, inst, _ = elgamal_instance(128, seed + 201)
+    proofs = []
+    for device in ("cuda", "cpu"):
+        system = PlonkSystem(meta, 128, asg, use_device=True, device=device)
+        proofs.append(fields(system.prove(asg, inst, rng=random.Random(seed + 5))))
+        proofs.append(fields(system.pk))
+    if proofs[0] != proofs[2] or proofs[1] != proofs[3]:
+        raise AssertionError("n=128 PLONK proof or key on the card != the CPU's")
+    rng = random.Random(seed + 6)
+    coeffs = [rng.randrange(fi.PASTA_P) for _ in range(1024)]
+    x = rng.randrange(fi.PASTA_P)
+    card = fields(IPA(1024, use_device_msm=True, device="cuda").open(coeffs, x))
+    if card != fields(IPA(1024).open(coeffs, x)):
+        raise AssertionError("IPA(1024) opening (device fold) on the card != the host fold's")
+    return ("n=128 key and proof equal to the CPU's; an IPA(1024) opening with the device "
+            "fold equal to the host fold's")
+
+
+def run_plonk(n: int, seed: int):
+    """The halo2-path PLONKish prover on the card (benchmarks/
+    drive_plonk_k12.py on the port): the ElGamal circuit over Pallas at
+    n rows (the reference's k = 12), setup, two proves (the second warm),
+    verify, a tampered instance refused; in the default configuration
+    (K1-K3).  Returns (launches over the phase, seconds)."""
+    from contangle_zkcp_tpu_torch.ops import cuda_lib
+    from contangle_zkcp_tpu_torch.plonkish.prover import PlonkSystem
+    from contangle_zkcp_tpu_torch.utils import metrics
+
+    meta, asg, inst, bad = elgamal_instance(n, seed + 7)
+    times = {}
+    metrics.registry().reset()
+    cuda_lib.reset_launches()
+    t0 = time.time()
+    system = PlonkSystem(meta, n, asg, use_device=True, device="cuda")
+    torch.cuda.synchronize()
+    times["setup"] = time.time() - t0
+    log(f"[plonk] setup n={n} (ext {system.ext}, IPA {system.ipa.n} generators): "
+        f"{times['setup']:.3f} s; launches {json.dumps(dict(cuda_lib.LAUNCHES), sort_keys=True)}")
+    for rep, name in enumerate(("prove_cold", "prove_warm")):
+        metrics.registry().reset()
+        before = dict(cuda_lib.LAUNCHES)
+        t0 = time.time()
+        proof = system.prove(asg, inst, rng=random.Random(seed + 100 + rep))
+        torch.cuda.synchronize()
+        times[name] = time.time() - t0
+        delta = {k: v - before.get(k, 0) for k, v in cuda_lib.LAUNCHES.items() if v - before.get(k, 0)}
+        timers = {k: round(v["total_sec"], 4) for k, v in sorted(metrics.registry().snapshot()["timers"].items())
+                  if k.startswith(("plonk.", "msm."))}
+        log(f"[plonk] {name.replace('_', ' ')}: {times[name]:.3f} s; launches "
+            f"{json.dumps(delta, sort_keys=True)}; timers (s) {json.dumps(timers)}")
+    t0 = time.time()
+    if not system.verify(proof, inst):
+        raise AssertionError("PLONK verifier rejected the proof")
+    times["verify"] = time.time() - t0
+    log(f"[plonk] verify: accepted, {times['verify']:.3f} s")
+    t0 = time.time()
+    if system.verify(proof, bad):
+        raise AssertionError("PLONK verifier accepted a tampered instance")
+    log(f"[plonk] tampered instance: rejected, {time.time() - t0:.3f} s")
+    launches = dict(cuda_lib.LAUNCHES)
+    log(f"[plonk] launches over the phase: {json.dumps(launches, sort_keys=True)}")
+    for k in DEFAULT_KERNELS:
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the PLONKish path")
+    for k in MXU_KERNELS:
+        if launches.get(k, 0):
+            raise AssertionError(f"kernel {k} launched in the default configuration")
+    return launches, times
+
+
 # name, source, TPU kernel it replaces, record key (Fr or the only shape),
-# Fq record key, shape, the path whose launches are reported
+# Fq record key, shape
 KERNEL_ROWS = (
     ("k1_mont_mul", "k1_mont_mul.cu", "contangle_zkcp_tpu/ops/pallas_mont.py:287",
-     "k1_bls12_381_fr", "k1_bls12_381_fq", "fr n=2^18", "poe"),
+     "k1_bls12_381_fr", "k1_bls12_381_fq", "fr n=2^18"),
     ("k2_butterfly", "k2_butterfly.cu", "contangle_zkcp_tpu/ops/pallas_mont.py:371",
-     "k2", None, "fr n/2=2^17", "poe"),
+     "k2", None, "fr n/2=2^17"),
     ("k3_sw_add", "k3_sw_add.cu", "contangle_zkcp_tpu/ops/pallas_curve.py:188",
-     "k3", None, "g1 n=2^16", "poe"),
+     "k3", None, "g1 n=2^16"),
     ("k4_field_mul", "k1_mont_mul.cu", "contangle_zkcp_tpu/ops/pallas_field.py:156",
-     "k4_bls12_381_fr", "k4_bls12_381_fq", "fr n=2^18", None),
+     "k4_bls12_381_fr", "k4_bls12_381_fq", "fr n=2^18"),
     ("k5a_mont_mul_mma", "k5a_mont_mul_mma.cu", "contangle_zkcp_tpu/ops/pallas_mont.py:272",
-     "k5a_bls12_381_fr", "k5a_bls12_381_fq", "fr n=2^18", "sale"),
+     "k5a_bls12_381_fr", "k5a_bls12_381_fq", "fr n=2^18"),
     ("k5b_butterfly_mma", "k5b_butterfly_mma.cu", "contangle_zkcp_tpu/ops/pallas_mont.py:325",
-     "k5b", None, "fr n/2=2^17", "sale"),
+     "k5b", None, "fr n/2=2^17"),
     ("k5c_sw_add_mma", "k5c_sw_add_mma.cu", "contangle_zkcp_tpu/ops/pallas_curve.py:153",
-     "k5c", None, "g1 n=2^16", "sale"),
+     "k5c", None, "g1 n=2^16"),
 )
 
 
+# the PLONKish path's shapes and the W = 24 ones, per kernel (record keys)
+MORE_SHAPES = {
+    "k1_mont_mul": ("k1_pasta_fp", "k1_bw6"),
+    "k2_butterfly": ("k2_pasta_fp", "k2_bw6"),
+    "k3_sw_add": ("k3_vesta_2e12", "k3_vesta_2e16"),
+    "k4_field_mul": ("k4_bw6",),
+    "k5a_mont_mul_mma": ("k5a_bw6",),
+    "k5b_butterfly_mma": ("k5b_bw6",),
+    "k5c_sw_add_mma": ("k5c_vesta",),
+}
+
+
 def kernel_line(recs, launches):
-    """The {"kernels": [...]} records; launches are those of the path each
-    kernel runs on (K4 is on neither: reached only through its own entry
-    point, ops/field_mul.py)."""
+    """The {"kernels": [...]} records.  `launches` is the sum over the
+    driven paths (the PoE and the PLONKish prover in the default
+    configuration, the sale under ZKCP_MXU=1), `launches_by_path` each
+    path's own count (K4 is on none: reached only through its own entry
+    point, ops/field_mul.py); `more` holds the other shapes checked."""
     out = []
-    for name, src, replaces, key, fq_key, shape, path in KERNEL_ROWS:
+    for name, src, replaces, key, fq_key, shape in KERNEL_ROWS:
         r = recs[key]
+        by_path = {p: c.get(name, 0) for p, c in launches.items()}
         row = dict(name=name, route="cuda", source="contangle_zkcp_tpu_torch/csrc/" + src,
-                   replaces=replaces, launches=launches[path].get(name, 0) if path else 0,
+                   replaces=replaces, launches=sum(by_path.values()),
                    max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
                    bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
-                   shape=shape, path=path or "none")
+                   shape=shape, launches_by_path=by_path,
+                   more=[{k: recs[m][k] for k in ("shape", "err", "ms", "plain_ms", "bound_ms",
+                                                   "bound_by")}
+                         for m in MORE_SHAPES[name]])
         if "ms_n2e20" in r:
             row.update(ms_n2e20=r["ms_n2e20"], bound_ms_n2e20=r["bound_ms_n2e20"])
+        if name == "k3_sw_add":
+            row.update(fold=recs["k3_fold"])
         if fq_key:
             f = recs[fq_key]
             row.update(fq_ms=f["ms"], fq_plain_ms=f["plain_ms"], fq_bound_ms=f["bound_ms"])
@@ -798,6 +1098,8 @@ def main() -> int:
     ap.add_argument("--blocks", type=int, default=49152, help="PoE blocks (default 49152)")
     ap.add_argument("--sale-blocks", type=int, default=65536,
                     help="data blocks of the sale, a power of two (default 65536)")
+    ap.add_argument("--plonk-rows", type=int, default=4096,
+                    help="rows of the PLONKish ElGamal circuit, a power of two (default 4096, k = 12)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (a quick run; prints no result line)")
@@ -843,6 +1145,11 @@ def main() -> int:
     launches, times = {}, {}
     launches["poe"], times["poe"] = run_slice(args.blocks, args.seed)
     launches["sale"], times["sale"] = run_sale(args.sale_blocks, args.seed)
+
+    t0 = time.time()
+    note = plonk_exact(args.seed)
+    log(f"[plonk] exact check: {note}: {time.time() - t0:.2f} s")
+    launches["plonk"], times["plonk"] = run_plonk(args.plonk_rows, args.seed)
 
     log(f"[done] wall {time.time() - t_start:.1f} s; phases (s): "
         f"{json.dumps({p: {k: round(v, 3) for k, v in t.items()} for p, t in times.items()})}")

@@ -5,11 +5,22 @@
 // Layout as mont.cuh (load_elem / store_elem): W 32-bit words, little-
 // endian, Montgomery form with R = 2^(32 W).
 //
-// Lazy reduction.  Between operations a value lies in [0, 2p), not in
-// [0, p).  That is sound when 4p < R, which holds for the two G1 fields
-// the port adds on: BLS12-381 Fq (p < 2^381, W = 12) and BN254 Fq
-// (p < 2^254, W = 8).  The wrappers (ops/curve_add.py) refuse a field
-// without it.  Step by step:
+// Two arithmetics, a template flag S of the kernels (false: lazy, true:
+// strict), which the wrapper (ops/curve_add.py kernel_b3) picks from p
+// alone: lazy when 4p < R, strict otherwise.
+//
+// Strict (S = true): every value canonical in [0, p) after each add,
+// subtract and multiply, with mont.cuh's mont_mul, mod_add and mod_sub,
+// which keep the carry out of the top word and so are right for any
+// p < R: the Pasta fields (255-bit primes at W = 8, 2p < R < 4p) and
+// fields with 2p >= R such as secp256k1's.  K5c's tensor-core multiply
+// keeps the carry out of (T + m p) / R and subtracts p once
+// (k5c_sw_add_mma.cu group_reduce).  No output needs `canon`.
+//
+// Lazy reduction (S = false).  Between operations a value lies in
+// [0, 2p), not in [0, p).  That is sound when 4p < R, which holds for
+// BLS12-381 Fq (p < 2^381, W = 12) and BN254 Fq (p < 2^254, W = 8), the
+// G1 fields of the Groth16 path.  Step by step:
 //   mul  a, b < 2p.  Row i of CIOS leaves T_i = (T_{i-1} + a b_i + m_i p)
 //        / 2^32 < a + p < 3p, by induction: (a + p + (a + p)(2^32 - 1))
 //        / 2^32 = a + p; before the shift T_{i-1} + a b_i + m_i p <
@@ -156,23 +167,6 @@ __device__ __forceinline__ void canon(uint32_t (&x)[W], const LazyConst<W>& F) {
   csub<W>(x, F.p, x);
 }
 
-// r = K y mod p (lazy) for K = 3b in {9, 12}.
-template <int W, int K>
-__device__ __forceinline__ void mul_small(const uint32_t (&y)[W], uint32_t (&r)[W],
-                                          const LazyConst<W>& F) {
-  static_assert(K == 9 || K == 12, "addition chains exist for 3b = 9 and 12");
-  uint32_t t[W];
-  add<W>(y, y, t, F);  // 2y
-  if (K == 12) {
-    add<W>(t, y, t, F);  // 3y
-    add<W>(t, t, t, F);  // 6y
-    add<W>(t, t, r, F);  // 12y
-  } else {
-    add<W>(t, t, t, F);  // 4y
-    add<W>(t, t, t, F);  // 8y
-    add<W>(t, y, r, F);  // 9y
-  }
-}
 
 // ------------------------------------------------------------ multiply
 // The accumulator of CIOS is E + 2^32 O: E (W words) at word offset 0,
@@ -272,16 +266,86 @@ __device__ __forceinline__ void mul(const uint32_t (&a)[W], const uint32_t (&b)[
   r[W - 1] = addc(x[W - 1], 0u);
 }
 
-// 3b y (lazy): the addition chain when 3b is 9 or 12 (B3), else the
-// Montgomery product with 3b R mod p (B3 = 0).
-template <int W, int B3>
+// ------------------------------------------- the kernels' operations
+// Each picks the lazy or the strict arithmetic by S (see the top).
+
+// r = a b R^-1 mod p.
+template <int W, bool S>
+__device__ __forceinline__ void fmul(const uint32_t (&a)[W], const uint32_t (&b)[W],
+                                     uint32_t (&r)[W], const LazyConst<W>& F) {
+  if constexpr (S) mont_mul<W>(a, b, r, F); else mul<W>(a, b, r, F);
+}
+
+// r = a + b mod p.
+template <int W, bool S>
+__device__ __forceinline__ void fadd(const uint32_t (&a)[W], const uint32_t (&b)[W],
+                                     uint32_t (&r)[W], const LazyConst<W>& F) {
+  if constexpr (S) mod_add<W>(a, b, r, F); else add<W>(a, b, r, F);
+}
+
+// r = a - b mod p.
+template <int W, bool S>
+__device__ __forceinline__ void fsub(const uint32_t (&a)[W], const uint32_t (&b)[W],
+                                     uint32_t (&r)[W], const LazyConst<W>& F) {
+  if constexpr (S) mod_sub<W>(a, b, r, F); else sub<W>(a, b, r, F);
+}
+
+// r = a + b for canonical a, b (inputs as loaded): below 2p unreduced
+// when lazy, reduced when strict.
+template <int W, bool S>
+__device__ __forceinline__ void fadd_in(const uint32_t (&a)[W], const uint32_t (&b)[W],
+                                        uint32_t (&r)[W], const LazyConst<W>& F) {
+  if constexpr (S) mod_add<W>(a, b, r, F); else add_nr<W>(a, b, r);
+}
+
+// An output coordinate made canonical before its store (strict: it is).
+template <int W, bool S>
+__device__ __forceinline__ void fcanon(uint32_t (&x)[W], const LazyConst<W>& F) {
+  if constexpr (!S) canon<W>(x, F);
+}
+
+// r = K y mod p for K = 3b in {9, 12}, as a chain of adds.
+template <int W, int K, bool S>
+__device__ __forceinline__ void mul_small(const uint32_t (&y)[W], uint32_t (&r)[W],
+                                          const LazyConst<W>& F) {
+  static_assert(K == 9 || K == 12, "addition chains exist for 3b = 9 and 12");
+  uint32_t t[W];
+  fadd<W, S>(y, y, t, F);  // 2y
+  if (K == 12) {
+    fadd<W, S>(t, y, t, F);  // 3y
+    fadd<W, S>(t, t, t, F);  // 6y
+    fadd<W, S>(t, t, r, F);  // 12y
+  } else {
+    fadd<W, S>(t, t, t, F);  // 4y
+    fadd<W, S>(t, t, t, F);  // 8y
+    fadd<W, S>(t, y, r, F);  // 9y
+  }
+}
+
+// 3b y: the addition chain when 3b is 9 or 12 (B3), else the Montgomery
+// product with 3b R mod p (B3 = 0).
+template <int W, int B3, bool S>
 __device__ __forceinline__ void mul_b3(const uint32_t (&b3m)[W], const uint32_t (&y)[W],
                                        uint32_t (&r)[W], const LazyConst<W>& F) {
   if constexpr (B3 == 0) {
-    mul<W>(b3m, y, r, F);
+    fmul<W, S>(b3m, y, r, F);
   } else {
-    mul_small<W, B3>(y, r, F);
+    mul_small<W, B3, S>(y, r, F);
   }
+}
+
+// x - p when x + 2^(32 W) top >= p, else x: a product (T + m p) / R of
+// canonical operands, below 2p, whose bit 32 W is `top`.
+template <int W>
+__device__ __forceinline__ void csub_top(uint32_t (&x)[W], uint32_t top, const LazyConst<W>& F) {
+  uint32_t d[W];
+  d[0] = sub_cc(x[0], F.p[0]);
+#pragma unroll
+  for (int j = 1; j < W; ++j) d[j] = subc_cc(x[j], F.p[j]);
+  const uint32_t borrow = subc(0u, 0u);
+  const bool take = top || !borrow;
+#pragma unroll
+  for (int j = 0; j < W; ++j) x[j] = take ? d[j] : x[j];
 }
 
 // An element loaded again (the first load's registers were let go): a

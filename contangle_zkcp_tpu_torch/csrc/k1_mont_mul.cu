@@ -6,7 +6,7 @@
 //
 // What bounds it on an H100: device memory.  One product reads two
 // operands and writes one, 8W bytes each (W = 8 words for BLS12-381 Fr,
-// 12 for Fq; the boundary keeps one 16-bit limb per int32, which doubles
+// 12 for Fq, 24 for BW6-761 Fq; the boundary keeps one 16-bit limb per int32, which doubles
 // the bytes), against 2 W^2 + W 32x32-bit multiply-adds: about 1.4 (Fr)
 // and 2.1 (Fq) multiply-add operations per byte, far below the card's
 // ~20 operations per byte of bandwidth.  Design: one thread per element,
@@ -50,6 +50,7 @@ extern "C" int k1_mont_mul(const void* a, const void* b, void* out,
   switch (nwords) {
     case 8: return launch_k1<8>(a, b, out, n, p, n0, s);
     case 12: return launch_k1<12>(a, b, out, n, p, n0, s);
+    case 24: return launch_k1<24>(a, b, out, n, p, n0, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

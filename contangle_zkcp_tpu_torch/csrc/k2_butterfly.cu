@@ -53,6 +53,7 @@ extern "C" int k2_butterfly(const void* u, const void* v, const void* tw,
   switch (nwords) {
     case 8: return launch_k2<8>(u, v, tw, hi, lo, n, p, n0, s);
     case 12: return launch_k2<12>(u, v, tw, hi, lo, n, p, n0, s);
+    case 24: return launch_k2<24>(u, v, tw, hi, lo, n, p, n0, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -222,6 +222,16 @@ __device__ __forceinline__ void load_live(const int32_t* __restrict__ src, bool 
   }
 }
 
+// Allow a kernel `bytes` of dynamic shared memory (MmaSmem<W> is 52,224
+// bytes at W = 24, past the 48 KB a launch gets without asking); the
+// launchers call it once per instantiation.
+template <class K>
+inline cudaError_t k5_smem_attr(K* kernel, size_t bytes) {
+  return bytes > 48 * 1024
+             ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes)
+             : cudaSuccess;
+}
+
 // Blocks for n elements: one warp iteration covers 32, and the grid is
 // capped at 8 blocks per SM so that each block's fragment copy serves
 // several iterations.

@@ -26,7 +26,8 @@ __global__ void __launch_bounds__(K5_THREADS)
 k5a_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
            int32_t* __restrict__ out, long long n, FieldConst<W> F,
            const uint4* __restrict__ frag) {
-  __shared__ __align__(16) MmaSmem<W> sm;
+  extern __shared__ __align__(16) uint4 k5a_smem[];
+  MmaSmem<W>& sm = *reinterpret_cast<MmaSmem<W>*>(k5a_smem);
   load_fragments<W>(sm.A, frag);
   __syncthreads();
   const MmaWarp<W> w = warp_view<W>(sm);
@@ -46,8 +47,10 @@ k5a_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
 template <int W>
 static int launch_k5a(const void* a, const void* b, void* out, long long n,
                       const uint32_t* p, uint32_t n0, const void* frag, cudaStream_t s) {
+  static const cudaError_t e = k5_smem_attr(k5a_kernel<W>, sizeof(MmaSmem<W>));
+  if (e != cudaSuccess) return (int)e;
   if (n > 0)
-    k5a_kernel<W><<<k5_grid(n), K5_THREADS, 0, s>>>(
+    k5a_kernel<W><<<k5_grid(n), K5_THREADS, sizeof(MmaSmem<W>), s>>>(
         (const int32_t*)a, (const int32_t*)b, (int32_t*)out, n, make_field<W>(p, n0),
         (const uint4*)frag);
   return (int)cudaGetLastError();
@@ -60,6 +63,7 @@ extern "C" int k5a_mont_mul_mma(const void* a, const void* b, void* out, long lo
   switch (nwords) {
     case 8: return launch_k5a<8>(a, b, out, n, p, n0, frag, s);
     case 12: return launch_k5a<12>(a, b, out, n, p, n0, frag, s);
+    case 24: return launch_k5a<24>(a, b, out, n, p, n0, frag, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

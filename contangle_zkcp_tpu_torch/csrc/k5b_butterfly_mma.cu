@@ -23,7 +23,8 @@ k5b_kernel(const int32_t* __restrict__ u, const int32_t* __restrict__ v,
            const int32_t* __restrict__ tw, int32_t* __restrict__ hi,
            int32_t* __restrict__ lo, long long n, FieldConst<W> F,
            const uint4* __restrict__ frag) {
-  __shared__ __align__(16) MmaSmem<W> sm;
+  extern __shared__ __align__(16) uint4 k5b_smem[];
+  MmaSmem<W>& sm = *reinterpret_cast<MmaSmem<W>*>(k5b_smem);
   load_fragments<W>(sm.A, frag);
   __syncthreads();
   const MmaWarp<W> w = warp_view<W>(sm);
@@ -48,8 +49,10 @@ template <int W>
 static int launch_k5b(const void* u, const void* v, const void* tw, void* hi, void* lo,
                       long long n, const uint32_t* p, uint32_t n0, const void* frag,
                       cudaStream_t s) {
+  static const cudaError_t e = k5_smem_attr(k5b_kernel<W>, sizeof(MmaSmem<W>));
+  if (e != cudaSuccess) return (int)e;
   if (n > 0)
-    k5b_kernel<W><<<k5_grid(n), K5_THREADS, 0, s>>>(
+    k5b_kernel<W><<<k5_grid(n), K5_THREADS, sizeof(MmaSmem<W>), s>>>(
         (const int32_t*)u, (const int32_t*)v, (const int32_t*)tw, (int32_t*)hi,
         (int32_t*)lo, n, make_field<W>(p, n0), (const uint4*)frag);
   return (int)cudaGetLastError();
@@ -62,6 +65,7 @@ extern "C" int k5b_butterfly_mma(const void* u, const void* v, const void* tw, v
   switch (nwords) {
     case 8: return launch_k5b<8>(u, v, tw, hi, lo, n, p, n0, frag, s);
     case 12: return launch_k5b<12>(u, v, tw, hi, lo, n, p, n0, frag, s);
+    case 24: return launch_k5b<24>(u, v, tw, hi, lo, n, p, n0, frag, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

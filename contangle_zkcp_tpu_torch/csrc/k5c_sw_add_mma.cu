@@ -19,7 +19,8 @@
 // tensor cores, through shared memory, with the few warps that its
 // registers and shared memory leave an SM.
 // Design: one point pair per lane (a warp's 32 points share each mma),
-// K3's lazily reduced arithmetic (fp_lazy.cuh) for the integer part, the
+// K3's lazily reduced arithmetic (fp_lazy.cuh) for the integer part, or
+// its strict one for a field without the lazy headroom (template S), the
 // two multiplies by 3b as addition chains when 3b is 9 or 12 (template
 // B3) and so off the tensor cores (any other 3b: one more group, of two),
 // and the ten general multiplies in four groups of three independent ones
@@ -241,14 +242,23 @@ __device__ __forceinline__ void group_mp(const GroupWarp<W>& w, Group<W>& G,
   }
 }
 
-// The Montgomery reduction of the group's NG staged products.
-template <int W, int NG = K5C_G>
-__device__ __forceinline__ void group_reduce(const GroupWarp<W>& w, Group<W>& G) {
+// The Montgomery reduction of the group's NG staged products.  Lazy (S
+// false): the results in [0, 2p) < R, the fold's last carry zero.
+// Strict: canonical operands give results below 2p, which may reach R
+// (2p >= R); the fold's last carry is bit 32 W, and one conditional
+// subtract of p makes each result canonical.
+template <int W, bool S, int NG = K5C_G>
+__device__ __forceinline__ void group_reduce(const GroupWarp<W>& w, Group<W>& G,
+                                             const LazyConst<W>& F) {
   uint64_t carry[K5C_G];
   uint32_t nz[K5C_G];
   __syncwarp();  // the staged T rows
   group_m<W, NG>(w, carry);
   group_mp<W, NG>(w, G, carry, nz);
+  if constexpr (S) {
+#pragma unroll
+    for (int k = 0; k < NG; ++k) csub_top<W>(G.hi[k], (uint32_t)carry[k], F);
+  }
 }
 
 template <int W>
@@ -257,7 +267,7 @@ __device__ __forceinline__ void copy_elem(const uint32_t (&x)[W], uint32_t (&r)[
   for (int j = 0; j < W; ++j) r[j] = x[j];
 }
 
-template <int W, int B3>
+template <int W, int B3, bool S>
 __global__ void __launch_bounds__(K5_THREADS, 2)
 k5c_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
            const int32_t* __restrict__ z1, const int32_t* __restrict__ x2,
@@ -295,13 +305,13 @@ k5c_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
       stage_product<W>(Z1, Z2, G.hi[2], w, 2);
       // the sums of canonical inputs, below 2p: X1+Y1 into t3's place,
       // Y1+Z1 into Y1's, X1+Z1 into X1's (and the same for the second point)
-      add_nr<W>(X1, Y1, t3);
-      add_nr<W>(X2, Y2, t4);
-      add_nr<W>(Y1, Z1, Y1);
-      add_nr<W>(Y2, Z2, Y2);
-      add_nr<W>(X1, Z1, X1);
-      add_nr<W>(X2, Z2, X2);
-      group_reduce<W>(w, G);
+      fadd_in<W, S>(X1, Y1, t3, F);
+      fadd_in<W, S>(X2, Y2, t4, F);
+      fadd_in<W, S>(Y1, Z1, Y1, F);
+      fadd_in<W, S>(Y2, Z2, Y2, F);
+      fadd_in<W, S>(X1, Z1, X1, F);
+      fadd_in<W, S>(X2, Z2, X2, F);
+      group_reduce<W, S>(w, G, F);
       copy_elem<W>(G.hi[0], t0);
       copy_elem<W>(G.hi[1], t1);
       copy_elem<W>(G.hi[2], t2);
@@ -309,67 +319,67 @@ k5c_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
       stage_product<W>(Y1, Y2, G.hi[1], w, 1);  // (Y1+Z1)(Y2+Z2)
       stage_product<W>(X1, X2, G.hi[2], w, 2);  // (X1+Z1)(X2+Z2)
     }
-    group_reduce<W>(w, G);
+    group_reduce<W, S>(w, G, F);
     uint32_t s[W];
-    add<W>(t0, t1, s, F);
-    sub<W>(G.hi[0], s, t3, F);  // t3 = X1Y2 + X2Y1
-    add<W>(t1, t2, s, F);
-    sub<W>(G.hi[1], s, t4, F);  // t4 = Y1Z2 + Y2Z1
-    add<W>(t0, t2, s, F);
+    fadd<W, S>(t0, t1, s, F);
+    fsub<W, S>(G.hi[0], s, t3, F);  // t3 = X1Y2 + X2Y1
+    fadd<W, S>(t1, t2, s, F);
+    fsub<W, S>(G.hi[1], s, t4, F);  // t4 = Y1Z2 + Y2Z1
+    fadd<W, S>(t0, t2, s, F);
     uint32_t y3b[W];
-    sub<W>(G.hi[2], s, y3b, F);  // y3p = X1Z2 + X2Z1
+    fsub<W, S>(G.hi[2], s, y3b, F);  // y3p = X1Z2 + X2Z1
     if constexpr (B3 == 0) {  // t2b = 3b t2, y3b = 3b y3p: a group of two
       stage_product<W>(C.b3, t2, G.hi[0], w, 0);
       stage_product<W>(C.b3, y3b, G.hi[1], w, 1);
-      group_reduce<W, 2>(w, G);
+      group_reduce<W, S, 2>(w, G, F);
       copy_elem<W>(G.hi[0], t2);
       copy_elem<W>(G.hi[1], y3b);
     } else {
-      mul_small<W, B3>(t2, t2, F);
-      mul_small<W, B3>(y3b, y3b, F);
+      mul_small<W, B3, S>(t2, t2, F);
+      mul_small<W, B3, S>(y3b, y3b, F);
     }
     uint32_t Z3p[W];
-    add<W>(t1, t2, Z3p, F);
-    sub<W>(t1, t2, t1, F);  // t1p
-    add<W>(t0, t0, t2, F);
-    add<W>(t2, t0, t0, F);  // t0p = 3 t0
+    fadd<W, S>(t1, t2, Z3p, F);
+    fsub<W, S>(t1, t2, t1, F);  // t1p
+    fadd<W, S>(t0, t0, t2, F);
+    fadd<W, S>(t2, t0, t0, F);  // t0p = 3 t0
     // X3 = t3 t1p - t4 y3b, Y3 = t1p Z3p + y3b t0p, Z3 = Z3p t4 + t0p t3
     stage_product<W>(t3, t1, G.hi[0], w, 0);
     stage_product<W>(t1, Z3p, G.hi[1], w, 1);
     stage_product<W>(Z3p, t4, G.hi[2], w, 2);
-    group_reduce<W>(w, G);
+    group_reduce<W, S>(w, G, F);
     copy_elem<W>(G.hi[0], t1);
     copy_elem<W>(G.hi[1], t2);
     copy_elem<W>(G.hi[2], Z3p);
     stage_product<W>(t4, y3b, G.hi[0], w, 0);
     stage_product<W>(y3b, t0, G.hi[1], w, 1);
     stage_product<W>(t0, t3, G.hi[2], w, 2);
-    group_reduce<W>(w, G);
-    sub<W>(t1, G.hi[0], t1, F);
-    canon<W>(t1, F);
+    group_reduce<W, S>(w, G, F);
+    fsub<W, S>(t1, G.hi[0], t1, F);
+    fcanon<W, S>(t1, F);
     if (live) store_elem<W>(x3 + off, t1);
-    add<W>(t2, G.hi[1], t2, F);
-    canon<W>(t2, F);
+    fadd<W, S>(t2, G.hi[1], t2, F);
+    fcanon<W, S>(t2, F);
     if (live) store_elem<W>(y3 + off, t2);
-    add<W>(Z3p, G.hi[2], Z3p, F);
-    canon<W>(Z3p, F);
+    fadd<W, S>(Z3p, G.hi[2], Z3p, F);
+    fcanon<W, S>(Z3p, F);
     if (live) store_elem<W>(z3 + off, Z3p);
   }
 }
 
-template <int W, int B3>
+template <int W, int B3, bool S>
 static int launch_k5c(const void* const* in, void* const* out, long long n,
                       const CurveConstMma<W>& C, const void* frag, cudaStream_t s) {
   const size_t smem = GroupShape<W>::SMEM;
   static bool sized = false;  // once per instantiation: > 48 KB of dynamic shared memory
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
-        k5c_kernel<W, B3>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        k5c_kernel<W, B3, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     sized = true;
   }
   if (n > 0)
-    k5c_kernel<W, B3><<<k5_grid(n), K5_THREADS, smem, s>>>(
+    k5c_kernel<W, B3, S><<<k5_grid(n), K5_THREADS, smem, s>>>(
         (const int32_t*)in[0], (const int32_t*)in[1], (const int32_t*)in[2],
         (const int32_t*)in[3], (const int32_t*)in[4], (const int32_t*)in[5],
         (int32_t*)out[0], (int32_t*)out[1], (int32_t*)out[2], n, C, (const uint4*)frag);
@@ -379,31 +389,36 @@ static int launch_k5c(const void* const* in, void* const* out, long long n,
 template <int W>
 static int launch_k5c_b3(const void* const* in, void* const* out, long long n,
                          const uint32_t* p, uint32_t n0, const uint32_t* b3, int b3small,
-                         const void* frag, cudaStream_t s) {
+                         int strict, const void* frag, cudaStream_t s) {
   CurveConstMma<W> C;
   C.F = make_lazy<W>(p, n0);
   for (int j = 0; j < W; ++j) C.b3[j] = b3[j];
+  if (strict) {  // the Pasta fields: W = 8, the general multiply by 3b
+    if constexpr (W == 8)
+      if (b3small == 0) return launch_k5c<W, 0, true>(in, out, n, C, frag, s);
+    return (int)cudaErrorInvalidValue;
+  }
   switch (b3small) {
-    case 0: return launch_k5c<W, 0>(in, out, n, C, frag, s);
-    case 9: return launch_k5c<W, 9>(in, out, n, C, frag, s);
-    case 12: return launch_k5c<W, 12>(in, out, n, C, frag, s);
+    case 0: return launch_k5c<W, 0, false>(in, out, n, C, frag, s);
+    case 9: return launch_k5c<W, 9, false>(in, out, n, C, frag, s);
+    case 12: return launch_k5c<W, 12, false>(in, out, n, C, frag, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // b3 is 3b R mod p (words); b3small is the integer 3b when it is 9 or 12,
-// else 0.
+// else 0; strict is 1 for a field without the lazy headroom (4p >= R).
 extern "C" int k5c_sw_add_mma(const void* x1, const void* y1, const void* z1,
                               const void* x2, const void* y2, const void* z2, void* x3,
                               void* y3, void* z3, long long n, int nwords, const uint32_t* p,
-                              uint32_t n0, const uint32_t* b3, int b3small, const void* frag,
-                              void* stream) {
+                              uint32_t n0, const uint32_t* b3, int b3small, int strict,
+                              const void* frag, void* stream) {
   const void* in[6] = {x1, y1, z1, x2, y2, z2};
   void* out[3] = {x3, y3, z3};
   cudaStream_t s = (cudaStream_t)stream;
   switch (nwords) {
-    case 8: return launch_k5c_b3<8>(in, out, n, p, n0, b3, b3small, frag, s);
-    case 12: return launch_k5c_b3<12>(in, out, n, p, n0, b3, b3small, frag, s);
+    case 8: return launch_k5c_b3<8>(in, out, n, p, n0, b3, b3small, strict, frag, s);
+    case 12: return launch_k5c_b3<12>(in, out, n, p, n0, b3, b3small, strict, frag, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -26,7 +26,7 @@ struct FieldConst {
 template <int W>
 __device__ __forceinline__ void load_elem(const int32_t* __restrict__ src,
                                           uint32_t (&x)[W]) {
-  // 2W int32 limbs = 8W bytes; rows are 16-byte aligned for W in {8, 12}
+  // 2W int32 limbs = 8W bytes; rows are 16-byte aligned for even W
   // (the wrappers check the base pointer).
   const int4* s4 = reinterpret_cast<const int4*>(src);
 #pragma unroll
@@ -52,12 +52,14 @@ __device__ __forceinline__ void store_elem(int32_t* __restrict__ dst,
   }
 }
 
-// r = a * b * R^-1 mod p, canonical, for canonical a, b.
-template <int W>
+// r = a * b * R^-1 mod p, canonical, for canonical a, b.  C is any
+// constant block with the modulus words p[W] and n0 (FieldConst, or the
+// point adds' LazyConst); r may alias a or b.
+template <int W, class C = FieldConst<W>>
 __device__ __forceinline__ void mont_mul(const uint32_t (&a)[W],
                                          const uint32_t (&b)[W],
                                          uint32_t (&r)[W],
-                                         const FieldConst<W>& F) {
+                                         const C& F) {
   uint32_t t[W + 2];
 #pragma unroll
   for (int j = 0; j < W + 2; ++j) t[j] = 0;
@@ -102,11 +104,11 @@ __device__ __forceinline__ void mont_mul(const uint32_t (&a)[W],
 
 // r = a + b mod p (canonical in, canonical out; p < 2^(32W - 1) is not
 // assumed: the carry out of the top word is kept).
-template <int W>
+template <int W, class C = FieldConst<W>>
 __device__ __forceinline__ void mod_add(const uint32_t (&a)[W],
                                         const uint32_t (&b)[W],
                                         uint32_t (&r)[W],
-                                        const FieldConst<W>& F) {
+                                        const C& F) {
   uint32_t s[W];
   uint32_t carry = 0;
 #pragma unroll
@@ -129,11 +131,11 @@ __device__ __forceinline__ void mod_add(const uint32_t (&a)[W],
 }
 
 // r = a - b mod p.
-template <int W>
+template <int W, class C = FieldConst<W>>
 __device__ __forceinline__ void mod_sub(const uint32_t (&a)[W],
                                         const uint32_t (&b)[W],
                                         uint32_t (&r)[W],
-                                        const FieldConst<W>& F) {
+                                        const C& F) {
   uint32_t d[W];
   uint32_t borrow = 0;
 #pragma unroll

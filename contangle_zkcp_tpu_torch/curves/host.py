@@ -110,14 +110,58 @@ class SWCurve:
         return (P[0], (-P[1]) % self.p)
 
     def mul(self, k: int, P):
-        R = None
-        Q = P
-        while k > 0:
-            if k & 1:
-                R = self.add(R, Q)
-            Q = self.add(Q, Q)
-            k >>= 1
-        return R
+        """k P (None for k <= 0): double-and-add in Jacobian coordinates,
+        one inversion at the end instead of one per step; the same affine
+        point as the affine ladder."""
+        if P is None or k <= 0:
+            return None
+        p = self.p
+        x, y = P
+        J = None
+        for bit in bin(k)[2:]:
+            J = self._jdouble(J)
+            if bit == "1":
+                J = self._jadd_affine(J, x, y)
+        if J is None:
+            return None
+        X, Y, Z = J
+        zi = pow(Z, -1, p)
+        zi2 = zi * zi % p
+        return (X * zi2 % p, Y * zi2 * zi % p)
+
+    def _jdouble(self, J):
+        """2 J for a Jacobian point (x = X/Z^2, y = Y/Z^3; None the identity)."""
+        if J is None:
+            return None
+        p = self.p
+        X, Y, Z = J
+        if Y == 0:
+            return None
+        YY = Y * Y % p
+        S = 4 * X * YY % p
+        M = 3 * X * X
+        if self.a:
+            M += self.a * pow(Z, 4, p)
+        M %= p
+        X3 = (M * M - 2 * S) % p
+        return (X3, (M * (S - X3) - 8 * YY * YY) % p, 2 * Y * Z % p)
+
+    def _jadd_affine(self, J, x2: int, y2: int):
+        """J + (x2, y2) for a Jacobian J and an affine point."""
+        if J is None:
+            return (x2, y2, 1)
+        p = self.p
+        X1, Y1, Z1 = J
+        Z1Z1 = Z1 * Z1 % p
+        H = (x2 * Z1Z1 - X1) % p
+        r = (y2 * Z1 * Z1Z1 - Y1) % p
+        if H == 0:
+            return self._jdouble(J) if r == 0 else None
+        HH = H * H % p
+        HHH = H * HH % p
+        V = X1 * HH % p
+        X3 = (r * r - HHH - 2 * V) % p
+        return (X3, (r * (V - X3) - Y1 * HHH) % p, Z1 * H % p)
 
     @property
     def generator(self):

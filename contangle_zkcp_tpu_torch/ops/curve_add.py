@@ -10,11 +10,14 @@ The wrapper launches kernel K3 for CUDA tensors at any batch size and
 takes the twin only for CPU tensors.  The twin is the same formula over
 the limb-major Montgomery multiply and modular add/sub of `ops/mont.py`.
 
-The kernels keep values lazily reduced in [0, 2p) (csrc/fp_lazy.cuh),
-which needs 4p < R: true of BLS12-381 and BN254 Fq, the fields whose G1
-the port adds on; the wrappers refuse any other on the card.  When 3b is
-9 or 12 (BN254, BLS12-381) the kernels multiply by it with additions;
-`kernel_b3` says which, from the curve constant alone.
+The kernels have two arithmetics (csrc/fp_lazy.cuh), which `kernel_b3`
+picks from p alone: values lazily reduced in [0, 2p) where 4p < R
+(BLS12-381 and BN254 Fq, the G1 fields of the Groth16 path), and values
+canonical after every operation for any other field (the Pasta fields,
+whose Vesta adds the PLONKish IPA runs, and secp256k1's); the strict
+instances are built for W = 8.  When 3b is 9 or 12 (BN254, BLS12-381)
+the lazy kernels multiply by it with additions, from the curve constant
+alone.
 """
 
 from __future__ import annotations
@@ -67,18 +70,22 @@ def rcb_add_mma_plain(F, b3m: int, P, Q):
     return rcb_add_plain(F, b3m, P, Q, mont=mont_mma.mont_rows_mma)
 
 
-SMALL_B3 = (9, 12)  # 3b values the kernels multiply by with an addition chain
+SMALL_B3 = (9, 12)  # 3b values the lazy kernels multiply by with an addition chain
 
 
 def kernel_b3(F, b3m: int):
     """The kernels' curve-constant arguments: (3b R mod p as words, the
-    integer 3b when it is in SMALL_B3, else 0); checks 4p < R."""
+    integer 3b when the kernels multiply by it with an addition chain,
+    else 0, and the arithmetic: 0 lazy, 1 strict).  The arithmetic follows
+    from p alone: lazy reduction in [0, 2p) needs 4p < R (BLS12-381 and
+    BN254 Fq); any other field (the Pasta fields, secp256k1's) takes the
+    strict arithmetic, canonical after every operation, with the general
+    multiply by 3b."""
     cache = F.__dict__.setdefault("_kernel_b3", {})
     if b3m not in cache:
-        if 4 * F.p >= F.R:
-            raise ValueError(f"{F.name}: the point-add kernels need 4p < R (lazy reduction)")
+        strict = int(4 * F.p >= F.R)
         b3 = b3m * pow(F.R, -1, F.p) % F.p
-        cache[b3m] = (words(F, b3m), b3 if b3 in SMALL_B3 else 0)
+        cache[b3m] = (words(F, b3m), b3 if b3 in SMALL_B3 and not strict else 0, strict)
     return cache[b3m]
 
 
@@ -95,10 +102,10 @@ def sw_add(F, b3m: int, P, Q):
     if n == 0:
         return out
     p, n0 = _words(F)
-    b3w, b3small = kernel_b3(F, b3m)
+    b3w, b3small, strict = kernel_b3(F, b3m)
     rc = cuda_lib.lib().k3_sw_add(
         *(t.data_ptr() for t in P), *(t.data_ptr() for t in Q),
-        *(t.data_ptr() for t in out), n, F.L // 2, p, n0, b3w, b3small,
+        *(t.data_ptr() for t in out), n, F.L // 2, p, n0, b3w, b3small, strict,
         cuda_lib.stream_ptr(P[0]),
     )
     cuda_lib.LAUNCHES["k3_sw_add"] += 1
@@ -116,10 +123,10 @@ def sw_add_mma(F, b3m: int, P, Q):
     if n == 0:
         return out
     p, n0 = _words(F)
-    b3w, b3small = kernel_b3(F, b3m)
+    b3w, b3small, strict = kernel_b3(F, b3m)
     rc = cuda_lib.lib().k5c_sw_add_mma(
         *(t.data_ptr() for t in P), *(t.data_ptr() for t in Q),
-        *(t.data_ptr() for t in out), n, F.L // 2, p, n0, b3w, b3small,
+        *(t.data_ptr() for t in out), n, F.L // 2, p, n0, b3w, b3small, strict,
         mont_mma.fragments(F, P[0].device).data_ptr(), cuda_lib.stream_ptr(P[0]),
     )
     cuda_lib.LAUNCHES["k5c_sw_add_mma"] += 1

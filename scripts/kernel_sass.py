@@ -30,7 +30,7 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = ("k3_sw_add.cu", "k5c_sw_add_mma.cu")
-KERNEL = re.compile(r"(k3_kernel|k5c_kernel)ILi(\d+)E(?:Li(\d+)E)?")
+KERNEL = re.compile(r"(k3_kernel|k5c_kernel)ILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?")
 SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
 GROUPS = {  # opcode families reported apart, by prefix
     "IMAD": ("IMAD",),
@@ -53,8 +53,10 @@ def label(mangled: str) -> str | None:
     m = KERNEL.search(mangled)
     if not m:
         return None
-    args = ",".join(a for a in m.groups()[1:] if a)
-    return f"{m.group(1)}<{args}>"
+    args = [a for a in m.groups()[1:3] if a]
+    if m.group(4) is not None:  # the arithmetic flag: strict or lazy
+        args.append("strict" if m.group(4) == "1" else "lazy")
+    return f"{m.group(1)}<{','.join(args)}>"
 
 
 def ptxas_report(text: str) -> dict:

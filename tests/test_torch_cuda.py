@@ -1,6 +1,8 @@
 """The port's CUDA kernels (K1-K3, K4, and the tensor-core K5a-K5c) against
 their plain torch twins on the card, at awkward sizes (empty, one element,
-odd counts, a ragged last warp) and through the wrappers' operand checks.  Needs an NVIDIA Hopper GPU and nvcc; skips
+odd counts, a ragged last warp) and through the wrappers' operand checks;
+the multiplies and butterflies also at W = 24 (BW6-761 Fq), the point adds
+also over the Pasta curves (the strict arithmetic of csrc/fp_lazy.cuh).  Needs an NVIDIA Hopper GPU and nvcc; skips
 elsewhere.  Run on the card (this file imports no JAX, so the suite's
 conftest is not needed there):
 
@@ -35,7 +37,7 @@ def rand(F, n, seed):
 
 
 @pytest.mark.parametrize("n", [0, 1, 7, 1000, 4099])
-@pytest.mark.parametrize("name", ["bls12_381_fr", "bls12_381_fq"])
+@pytest.mark.parametrize("name", ["bls12_381_fr", "bls12_381_fq", "bw6_761_fq"])
 def test_k1_equals_twin(card, name, n):
     F = getattr(tfi, name)()
     a, b = rand(F, n, 1), rand(F, n, 2)
@@ -46,8 +48,9 @@ def test_k1_equals_twin(card, name, n):
 
 
 @pytest.mark.parametrize("n", [1, 33, 2048])
-def test_k2_equals_twin(card, n):
-    F = tfi.bls12_381_fr()
+@pytest.mark.parametrize("name", ["bls12_381_fr", "bw6_761_fq"])
+def test_k2_equals_twin(card, name, n):
+    F = getattr(tfi, name)()
     u, v, w = rand(F, n, 3), rand(F, n, 4), rand(F, n, 5)
     hi, lo = mont.butterfly(F, u.to(card), v.to(card), w.to(card))
     phi, plo = mont.butterfly_plain(F, u, v, w)
@@ -92,10 +95,18 @@ def point_add_cases(F, C, n, card):
     yield tuple(t.to(card) for t in P), tuple(t.to(card) for t in Q), None
 
 
+CURVES = {
+    "bls12_381": (tfi.bls12_381_fq, ci.BLS12_381_G1),
+    "bn254": (tfi.bn254_fq, ci.BN254_G1),
+    "vesta": (tfi.pasta_fq, ci.VESTA),
+    "pallas": (tfi.pasta_fp, ci.PALLAS),
+}
+
+
 @pytest.mark.parametrize("n", [1, 5, 300, 4097])
-def test_k3_equals_twin_and_host(card, n):
-    Fq = tfi.bls12_381_fq()
-    C = ci.BLS12_381_G1
+@pytest.mark.parametrize("curve", ["bls12_381", "vesta", "pallas"])
+def test_k3_equals_twin_and_host(card, curve, n):
+    Fq, C = CURVES[curve][0](), CURVES[curve][1]
     b3m = SWDevice(Fq, C, device=card)._b3m
     for Pt, Qt, host in point_add_cases(Fq, C, n, card):
         got = curve_add.sw_add(Fq, b3m, Pt, Qt)
@@ -108,13 +119,16 @@ def test_k3_equals_twin_and_host(card, n):
 
 
 @pytest.mark.parametrize("kernel", ["k3", "k5c"])
-@pytest.mark.parametrize("chain", [True, False])
-@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+@pytest.mark.parametrize(
+    "curve,chain",
+    [("bn254", True), ("bn254", False), ("bls12_381", True), ("bls12_381", False),
+     ("vesta", False), ("pallas", False)],
+)
 def test_point_adds_both_widths_and_b3_paths(card, monkeypatch, curve, chain, kernel):
     """K3 and K5c at W = 8 (BN254, 3b = 9) and W = 12 (BLS12-381, 3b = 12),
-    with the addition chain for 3b and with the general multiply by 3b R."""
-    F, C = {"bn254": (tfi.bn254_fq(), ci.BN254_G1),
-            "bls12_381": (tfi.bls12_381_fq(), ci.BLS12_381_G1)}[curve]
+    with the addition chain for 3b and with the general multiply by 3b R;
+    over the Pasta curves (W = 8, 3b = 15) in the strict arithmetic."""
+    F, C = CURVES[curve][0](), CURVES[curve][1]
     if not chain:
         monkeypatch.setattr(curve_add, "SMALL_B3", ())
         monkeypatch.setattr(F, "_kernel_b3", {}, raising=False)  # the field's cached choice
@@ -143,7 +157,7 @@ def test_wrapper_operand_checks(card):
 
 
 @pytest.mark.parametrize("n", [0, 1, 31, 33, 1000, 4099])
-@pytest.mark.parametrize("name", ["bls12_381_fr", "bls12_381_fq"])
+@pytest.mark.parametrize("name", ["bls12_381_fr", "bls12_381_fq", "bw6_761_fq"])
 def test_k4_equals_twin(card, name, n):
     F = getattr(tfi, name)()
     a, b = rand(F, n, 11), rand(F, n, 12)
@@ -156,7 +170,7 @@ def test_k4_equals_twin(card, name, n):
 
 
 @pytest.mark.parametrize("n", [0, 1, 31, 33, 1000, 4099, 300000])
-@pytest.mark.parametrize("name", ["bls12_381_fr", "bls12_381_fq"])
+@pytest.mark.parametrize("name", ["bls12_381_fr", "bls12_381_fq", "bw6_761_fq"])
 def test_k5a_equals_twin_and_k1(card, name, n):
     F = getattr(tfi, name)()
     a, b = rand(F, n, 13), rand(F, n, 14)
@@ -168,8 +182,9 @@ def test_k5a_equals_twin_and_k1(card, name, n):
 
 
 @pytest.mark.parametrize("n", [1, 33, 2048])
-def test_k5b_equals_twin_and_k2(card, n):
-    F = tfi.bls12_381_fr()
+@pytest.mark.parametrize("name", ["bls12_381_fr", "bw6_761_fq"])
+def test_k5b_equals_twin_and_k2(card, name, n):
+    F = getattr(tfi, name)()
     u, v, w = rand(F, n, 15), rand(F, n, 16), rand(F, n, 17)
     hi, lo = mont_mma.butterfly_mma(F, u.to(card), v.to(card), w.to(card))
     phi, plo = mont_mma.butterfly_mma_plain(F, u, v, w)
@@ -179,9 +194,9 @@ def test_k5b_equals_twin_and_k2(card, n):
 
 
 @pytest.mark.parametrize("n", [1, 5, 300, 4097])
-def test_k5c_equals_twin_and_k3(card, n):
-    Fq = tfi.bls12_381_fq()
-    C = ci.BLS12_381_G1
+@pytest.mark.parametrize("curve", ["bls12_381", "vesta", "pallas"])
+def test_k5c_equals_twin_and_k3(card, curve, n):
+    Fq, C = CURVES[curve][0](), CURVES[curve][1]
     b3m = SWDevice(Fq, C, device=card)._b3m
     for Pt, Qt, host in point_add_cases(Fq, C, n, card):
         got = curve_add.sw_add_mma(Fq, b3m, Pt, Qt)

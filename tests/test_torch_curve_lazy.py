@@ -15,6 +15,14 @@ twin `rcb_add_plain` (which K3 and K5c are held to on the card), for
 BLS12-381 G1 (W = 12, 3b = 12) and BN254 G1 (W = 8, 3b = 9), on points
 of the curve and on arbitrary triples (the formula is defined for every
 triple) with the coordinates 0, 1, p - 1 and p - 2 among them.
+
+For a field without the lazy headroom (4p >= R: the Pasta fields, and
+secp256k1's with 2p >= R) the kernels take the strict arithmetic
+instead: mont.cuh's multiply, modular add and subtract, every value
+canonical, the carry out of the top word kept; K5c keeps the carry out of
+its reduced product and subtracts p once.  `Strict` replays those word by
+word (every operand below p, every carry the code drops zero), over the
+same schedules, for Vesta, Pallas and secp256k1.
 """
 
 import numpy as np
@@ -25,12 +33,19 @@ from contangle_zkcp_tpu_torch.curves import instances as ci
 from contangle_zkcp_tpu_torch.curves.weierstrass import SWDevice
 from contangle_zkcp_tpu_torch.fields import instances as tfi
 from contangle_zkcp_tpu_torch.ops import curve_add, mont
+from contangle_zkcp_tpu_torch.zkcp import secp
 from tests.torch_port_util import one_torch_thread  # noqa: F401
 
 M32 = (1 << 32) - 1
 CURVES = {
     "bls12_381": (tfi.bls12_381_fq, ci.BLS12_381_G1, 12),
     "bn254": (tfi.bn254_fq, ci.BN254_G1, 9),
+}
+# fields without the lazy headroom: the strict arithmetic, 3b general
+STRICT_CURVES = {
+    "vesta": (tfi.pasta_fq, ci.VESTA, 0),
+    "pallas": (tfi.pasta_fp, ci.PALLAS, 0),
+    "secp256k1": (lambda: tfi.get_field(tfi.SECP256K1_P, "secp256k1_fp"), secp.SECP256K1, 0),
 }
 
 
@@ -259,6 +274,113 @@ class Lazy:
         return self.mul_small(small, y) if small else mul(b3m, y)
 
 
+class Strict(Lazy):
+    """The strict arithmetic (fp_lazy.cuh S = true: mont.cuh mont_mul,
+    mod_add, mod_sub; K5c's reduction with its top carry kept) over
+    Python ints; every operand and result canonical."""
+
+    def __init__(self, F):
+        self.p, self.W = F.p, F.L // 2
+        self.R = 1 << (32 * self.W)
+        assert 4 * self.p >= self.R and self.p < self.R
+        self.n0 = (-pow(self.p, -1, 1 << 32)) % (1 << 32)
+        self.rinv = pow(self.R, -1, self.p)
+        self.npinv = (-pow(self.p, -1, self.R)) % self.R
+        self.pw = words(self.p, self.W)
+
+    def lazy(self, *xs):
+        for x in xs:
+            assert 0 <= x < self.p, "operand outside [0, p)"
+
+    def mul(self, x, y):
+        """mont.cuh mont_mul: CIOS with 64-bit products, W + 2 words."""
+        self.lazy(x, y)
+        W, p = self.W, self.pw
+        a, b = words(x, W), words(y, W)
+        t = [0] * (W + 2)
+        for i in range(W):
+            c = 0
+            for j in range(W):
+                s = a[j] * b[i] + t[j] + c
+                t[j], c = s & M32, s >> 32
+            s = t[W] + c
+            t[W], t[W + 1] = s & M32, s >> 32
+            m = (t[0] * self.n0) & M32
+            s = m * p[0] + t[0]
+            assert s & M32 == 0
+            c = s >> 32
+            for j in range(1, W):
+                s = m * p[j] + t[j] + c
+                t[j - 1], c = s & M32, s >> 32
+            s = t[W] + c
+            t[W - 1] = s & M32
+            top = t[W + 1] + (s >> 32)
+            assert top >> 32 == 0, "a carry the kernel drops is not zero"
+            t[W] = top
+        v = value(t[: W + 1])
+        assert v < 2 * self.p
+        r = v - self.p if t[W] or value(t[:W]) >= self.p else v
+        assert r == x * y * self.rinv % self.p
+        self.lazy(r)
+        return r
+
+    def mul_mma(self, x, y):
+        """K5c's group reduction with the carry out of (T + m p) / R kept
+        (k5c_sw_add_mma.cu group_reduce, csub_top)."""
+        self.lazy(x, y)
+        W, R = self.W, self.R
+        T = self.product(x, y)
+        hi = T // R
+        m = (T % R) * self.npinv % R
+        mb = np.frombuffer(m.to_bytes(4 * W, "little"), np.uint8).astype(np.int64)
+        pb = np.frombuffer(self.p.to_bytes(4 * W, "little"), np.uint8).astype(np.int64)
+        cols = np.convolve(mb, pb)
+        cols = np.concatenate([cols, np.zeros(8 * W - len(cols), np.int64)])
+        carry, nz, out = 0, 0, []
+        for word in range(2 * W):
+            v = cols[4 * word : 4 * word + 4]
+            s = carry + int(v[0]) + (int(v[1]) << 8) + (int(v[2]) << 16) + (int(v[3]) << 24)
+            if word < W:
+                nz |= s & M32
+            else:
+                s += (hi >> (32 * (word - W))) & M32
+                if word == W:
+                    s += int(nz != 0)
+                out.append(s & M32)
+            carry = s >> 32
+        assert carry in (0, 1)
+        u = value(out) + (carry << (32 * W))
+        assert u == (T + m * self.p) // R and u < 2 * self.p
+        r = u - self.p if carry or value(out) >= self.p else value(out)
+        self.lazy(r)
+        return r
+
+    def add(self, x, y):
+        """mont.cuh mod_add: the carry out of the top word kept."""
+        self.lazy(x, y)
+        s = x + y
+        r = s - self.p if s >= self.p else s
+        self.lazy(r)
+        return r
+
+    add_nr = add  # sums of inputs reduce too (fadd_in)
+
+    def sub(self, x, y):
+        self.lazy(x, y)
+        r = x - y if x >= y else x - y + self.p
+        self.lazy(r)
+        return r
+
+    def canon(self, x):
+        self.lazy(x)
+        return x
+
+
+def arithmetic(F):
+    """The replay of the arithmetic ops/curve_add.py picks for F."""
+    return Strict(F) if 4 * F.p >= 1 << (16 * F.L) else Lazy(F)
+
+
 def k3_schedule(A, small, b3m, P, Q):
     """k3_sw_add.cu's sequence, variable for variable."""
     X1, Y1, Z1 = P
@@ -325,7 +447,7 @@ def batch(name, n_arbitrary, seed):
     """(F, b3m, P, Q) as (n, L) raw limb planes: points of the curve in
     random projective scalings (identity on either side, P + P, P + (-P)
     among them), then arbitrary canonical triples."""
-    make, C, _ = CURVES[name]
+    make, C, _ = {**CURVES, **STRICT_CURVES}[name]
     F = make()
     dev = SWDevice(F, C, device="cpu")
     pts, acc = [], None
@@ -382,24 +504,47 @@ def test_small_chain_equals_mont_product(name, small):
 
 
 @pytest.mark.parametrize("kernel", list(SCHEDULES))
-@pytest.mark.parametrize("name", list(CURVES))
+@pytest.mark.parametrize("name", list(CURVES) + list(STRICT_CURVES))
 def test_schedule_equals_twin(name, kernel):
     """The kernels' schedules, with their small-constant chain and with the
-    general multiply by 3b R, equal rcb_add_plain."""
+    general multiply by 3b R, equal rcb_add_plain; in the lazy arithmetic
+    for BLS12-381 and BN254, in the strict one for Vesta, Pallas and
+    secp256k1."""
     F, b3m, P, Q = batch(name, 20, 11)
-    small = CURVES[name][2]
+    small = {**CURVES, **STRICT_CURVES}[name][2]
     assert curve_add.kernel_b3(F, b3m)[1] == small
     want = [F.decode(t, mont=False) for t in curve_add.rcb_add_plain(F, b3m, P, Q)]
     Pi = list(zip(*(F.decode(t, mont=False) for t in P)))
     Qi = list(zip(*(F.decode(t, mont=False) for t in Q)))
-    A = Lazy(F)
-    for chain in (small, 0):
+    A = arithmetic(F)
+    assert isinstance(A, Strict) == (name in STRICT_CURVES)
+    for chain in sorted({small, 0}):
         got = [SCHEDULES[kernel](A, chain, b3m, pp, qq) for pp, qq in zip(Pi, Qi)]
         assert [list(c) for c in zip(*got)] == want
 
 
+@pytest.mark.parametrize("name", list(STRICT_CURVES))
+def test_strict_multiplies_stay_canonical(name):
+    """Both kernels' strict multiplies on canonical operands, the edges
+    0, 1, p - 2, p - 1 among them (secp256k1: 2p >= R, so the CIOS top
+    word and K5c's top carry are taken)."""
+    F = STRICT_CURVES[name][0]()
+    A = Strict(F)
+    p = F.p
+    vals = [0, 1, 2, p - 2, p - 1] + adversarial(p, 24, 5)
+    for x in vals:
+        for y in vals[::3]:
+            assert A.mul(x, y) == A.mul_mma(x, y)
+
+
 def test_kernel_b3_refuses_a_field_without_headroom():
-    """Lazy reduction needs 4p < R; secp256k1's p is too close to 2^256."""
-    F = tfi.get_field(tfi.SECP256K1_P, "secp256k1_fp")
-    with pytest.raises(ValueError):
-        curve_add.kernel_b3(F, 7 * F.R % F.p)
+    """The kernels' arithmetic follows from p alone: lazy where 4p < R
+    (BLS12-381 and BN254 Fq, with their 3b chains), strict for a field
+    without that headroom (Vesta, Pallas, secp256k1), which the kernels
+    once refused and now add on with the general multiply by 3b."""
+    for name, (make, C, small) in {**CURVES, **STRICT_CURVES}.items():
+        F = make()
+        b3m = 3 * C.b % F.p * F.R % F.p
+        _, got_small, strict = curve_add.kernel_b3(F, b3m)
+        assert strict == (name in STRICT_CURVES) == (4 * F.p >= F.R), name
+        assert got_small == small, name

@@ -71,6 +71,20 @@ def test_port_covers_the_slice():
         "csrc/k5a_mont_mul_mma.cu",
         "csrc/k5b_butterfly_mma.cu",
         "csrc/k5c_sw_add_mma.cu",
+        # the PLONKish prover (third slice)
+        "plonkish/__init__.py",
+        "plonkish/circuit.py",
+        "plonkish/mock.py",
+        "plonkish/transcript.py",
+        "plonkish/poseidon_pow5.py",
+        "plonkish/pow5_pinned_pasta.json",
+        "plonkish/elgamal_circuit.py",
+        "plonkish/ecc_chip.py",
+        "plonkish/ecc_tables_pallas.json",
+        "plonkish/ipa.py",
+        "plonkish/quotient_device.py",
+        "plonkish/prover.py",
+        "plonkish/convert.py",
     ):
         assert (PORT / rel).exists(), rel
 
@@ -81,6 +95,9 @@ def _entry_points():
     from contangle_zkcp_tpu_torch.groth16 import groth16, convert
     from contangle_zkcp_tpu_torch.ops.ntt import NTT
     from contangle_zkcp_tpu_torch.ops.merkle import build_tree_device
+    from contangle_zkcp_tpu_torch.plonkish.ipa import IPA
+    from contangle_zkcp_tpu_torch.plonkish.prover import PlonkSystem
+    from contangle_zkcp_tpu_torch.plonkish.quotient_device import QuotientDevice
     from contangle_zkcp_tpu_torch.zkcp.buyer import Buyer
     from contangle_zkcp_tpu_torch.zkcp.sample_entries import ZkSampleEntries
     from contangle_zkcp_tpu_torch.zkcp.seller import Seller
@@ -108,6 +125,9 @@ def _entry_points():
         Seller.__init__,
         Buyer.__init__,
         build_tree_device,
+        PlonkSystem.__init__,
+        IPA.__init__,
+        QuotientDevice.__init__,
     ]
 
 
@@ -127,7 +147,7 @@ def test_cli_device_defaults_to_cuda():
         assert cli.parser().parse_args(argv).device == "cuda", argv[0]
 
 
-@pytest.mark.parametrize("idx", range(20))
+@pytest.mark.parametrize("idx", range(23))
 def test_entry_points_default_to_cuda(idx):
     fn = _entry_points()[idx]
     assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
