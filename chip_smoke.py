@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--blocks N] [--sale-blocks N] [--plonk-rows N] [--seed S] [--kernels-only]
+    python3 chip_smoke.py [--blocks N] [--sale-blocks N] [--plonk-rows N] [--seed S]
+                          [--kernels-only | --plonk-only] [--root DIR]
 
 Phases, one line each as it finishes:
   1. the device: name, torch and CUDA versions, nvidia-smi name and
@@ -15,14 +16,19 @@ Phases, one line each as it finishes:
      points of the curve and on arbitrary triples; the PLONKish path's
      shapes (K1/K2 on Pasta Fp, K3/K5c on Vesta and Pallas in the strict
      arithmetic) and the W = 24 multiplies and butterflies (BW6-761 Fq);
-     with ptxas's registers and spills (`--kernels-only` stops here);
+     K2's NTT passes (k2_ntt_pass) against their twins pass by pass and
+     each whole transform against the stage loop's twin (Fr n = 2^18,
+     Pasta Fp n = 2^15 and 2^12, and n = 2, 4, 1024), timed beside the
+     one-stage route it replaced (k2_butterfly and F.mul); with ptxas's
+     registers and spills (`--kernels-only` stops here);
   4. a 256-point G1 MSM on the card against the exact host sum;
   5. a small reference: the toy Groth16 circuit of tests/test_groth16.py
      proves to the JAX package's pinned golden bytes;
   6. the Proof of Encryption in the default configuration: ZkEncryption
      at N blocks (default 49,152) — compile (setup), encrypt + prove,
      verify, decrypt, and a tampered input that must be rejected — with
-     K1-K3's launch counts on that path;
+     the kernels' launch counts on that path (K1, k2_ntt_pass, K3; no
+     k2_butterfly);
   7. the whole sale under ZKCP_MXU=1 (the tensor-core configuration) at
      N blocks (default 65,536): compile the three circuits, seller step 0
      (PoE + SampleEntries proof), buyer step 0 (verify, with the device
@@ -31,7 +37,7 @@ Phases, one line each as it finishes:
      decrypt), over the local HTTP server and client, every proof real
      Groth16; the plaintext must come back byte for byte, the seller must
      be paid, a tampered adaptor signature must be refused, and K5a-K5c
-     must launch while K1-K3 do not;
+     must launch while K1-K3 (k2_ntt_pass and k2_butterfly) do not;
   8. the PLONKish path held exactly to the CPU: the n = 128 ElGamal
      circuit's key and proof (one blinding seed) on the card equal the
      same calls on the CPU (the kernels' twins), and an IPA(1024)
@@ -39,8 +45,11 @@ Phases, one line each as it finishes:
   9. the halo2-path PLONKish prover in the default configuration: the
      ElGamal circuit over Pallas at 4,096 rows (the reference's k = 12),
      setup (8,192 IPA generators), two proves, verify, a tampered
-     instance refused, with K1-K3's launch counts (K3 on Vesta in the
-     strict arithmetic).
+     instance refused, with K1, k2_ntt_pass and K3's launch counts (K3 on
+     Vesta in the strict arithmetic).  `--plonk-only` runs phases 1, 2 and
+     9 alone, and `--root DIR` takes the port package from another
+     checkout (DIR/contangle_zkcp_tpu_torch): together they time the
+     prover of two trees after the same preceding work.
 Prints the kernels' JSON line and the card's name and power limit, then
 `{"ok": true, "device": {...}}` as the last line.  Any failure raises and
 exits nonzero; without a CUDA device it exits nonzero and prints no result.
@@ -197,6 +206,17 @@ def mma_ops_per_elem(F):
     return tiles * MMA_OPS / 8
 
 
+def k2_ntt_int_ops(F, n: int, scaled: bool):
+    """Integer instructions of one n-point transform through k2_ntt_pass:
+    (n/2) log2 n butterflies of 2 madds + 4W (a Montgomery product, two
+    instructions a multiply-add, and the add and subtract chains of 2W
+    each; chip_smoke's K2 count), plus n Montgomery products when a pre-
+    or post-scale is fused."""
+    w = F.L // 2
+    logn = n.bit_length() - 1
+    return (n // 2) * logn * (2 * madds(F) + 4 * w) + (n * 2 * madds(F) if scaled else 0)
+
+
 def k3_int_ops(F):
     """Integer instructions of one K3 point add as csrc/fp_lazy.cuh and
     k3_sw_add.cu issue them (selects and masks not counted, so a floor):
@@ -241,9 +261,9 @@ def k5c_strict_int_ops(F):
 
 
 def ptxas_summary() -> str:
-    """Registers and spills of the point-add kernels (every instance) and
-    of the W = 24 instances of K1, K2, K5a and K5b, from the build's
-    `-Xptxas -v` report."""
+    """Registers and spills of the point-add kernels (every instance), of
+    the W = 24 instances of K1, K2, K5a and K5b and of k2_ntt_pass's
+    kernel, from the build's `-Xptxas -v` report."""
     from contangle_zkcp_tpu_torch.ops import cuda_lib
 
     out, cur, spill = [], None, ""
@@ -254,6 +274,7 @@ def ptxas_summary() -> str:
             cur = f"{m.group(1)}<{m.group(2)},{m.group(3)},{arith}>"
             continue
         m = re.search(r"Compiling entry function '_Z\d+(k1_kernel|k2_kernel|k5a_kernel|k5b_kernel)ILi(24)E", line)
+        m = m or re.search(r"Compiling entry function '\S*?(k2_ntt_kernel)ILi(\d+)E", line)
         if m:
             cur = f"{m.group(1)}<{m.group(2)}>"
             continue
@@ -442,6 +463,7 @@ def check_kernels(seed: int):
                     log(f"[kernels] {key.upper()} g1 n={n}: {ms:.4f} ms (bound {bms:.4f} ms by {by})")
     check_pasta(recs, rng)
     check_bw6(recs, rng)
+    check_ntt(recs, rng)
     log(f"[kernels] ptxas: {ptxas_summary()}")
     return recs
 
@@ -578,6 +600,82 @@ def check_bw6(recs, rng):
             shape="bw6_761_fq n/2=2^16")
 
 
+NTT_OPS = ("forward", "inverse", "coset_forward", "coset_inverse")
+
+
+def check_ntt(recs, rng):
+    """K2 redesigned (k2_ntt_pass): at the main path's transforms (the
+    Groth16 quotient's Fr n = 2^18; the PLONK prover's Pasta Fp n = 2^15,
+    where it runs coset_forward and coset_inverse, and 2^12, where it runs
+    inverse), all four operations at each (g = 7 and 5), and at n = 2, 4,
+    1024 (both fields, all four),
+    every pass equal to `ntt_pass_plain` on the same input and the whole
+    transform equal to the stage loop's twin (one pass of all stages).
+    At n >= 2^12: one transform's device time (CUDA-graph replays), its
+    bound, the twin's time (first operation), the one-stage route it
+    replaced (the stage loop through k2_butterfly with its F.mul scalings,
+    ntt.stage_route) timed beside it, and the wall time of one call."""
+    from contangle_zkcp_tpu_torch.fields import instances as fi
+    from contangle_zkcp_tpu_torch.ops import mont
+    from contangle_zkcp_tpu_torch.ops.ntt import NTT
+
+    Fr, Fp = fi.bls12_381_fr(), fi.pasta_fp()
+    shapes = [(Fr, 1 << 18), (Fp, 1 << 15), (Fp, 1 << 12)]
+    shapes += [(F, n) for F in (Fr, Fp) for n in (2, 4, 1024)]
+    small = []
+    for F, n in shapes:
+        g = fi.FIELD_GENERATORS[F.p]
+        ntt = NTT(F, n, device="cuda")
+        logn = ntt.logn
+        a = random_field(F, n, rng)
+        for op in NTT_OPS:
+            tag = f"{F.name} n=2^{logn} {op}"
+            args = (g,) if op.startswith("coset") else ()
+            table, pre, post = ntt.pass_operands(op, g)
+            x, last, err = a, len(ntt.plan) - 1, 0
+            for i, (s0, t) in enumerate(ntt.plan):
+                kw = dict(pre=pre if i == 0 else None, post=post if i == last else None, gather=i == 0)
+                got = mont.ntt_pass(F, x, table, s0, t, **kw)
+                err = max(err, check("k2_ntt_pass", got, mont.ntt_pass_plain(F, x, table, s0, t, **kw),
+                                     f"twin ({tag}, pass {s0}+{t})"))
+                x = got
+
+            def twin():
+                return mont.ntt_pass_plain(F, a, table, 0, logn, pre, post, gather=True)
+
+            res = getattr(ntt, op)(a, *args)
+            check("NTT", res, x, f"its passes ({tag})")
+            check("NTT", res, twin(), f"the stage loop's twin ({tag})")
+            if n < 1 << 12:
+                small.append(f"{F.name} n={n} {op}")
+                continue
+            fn = lambda: getattr(ntt, op)(a, *args)  # noqa: E731
+            ms = cuda_ms(fn, 20, graph=True)
+            old = cuda_ms(lambda: ntt.stage_route(op, a, g), 10, graph=True)
+            pms = cuda_ms(twin, 1, batches=3) if op == NTT_OPS[0] else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 50 * 1e3
+            scale = pre if pre is not None else post  # words: n rows, or 1 (n^-1)
+            # limbs in and out, the table and the scale as 32-bit words
+            nbytes = 2 * n * 4 * F.L + (n // 2 + (0 if scale is None else scale.shape[0])) * 2 * F.L
+            bms, by = bound(nbytes, k2_ntt_int_ops(F, n, scale is not None))
+            plan = "+".join(str(t) for _, t in ntt.plan)
+            twin_note = f"twin {pms:.3f} ms, " if pms is not None else ""
+            log(f"[kernels] K2 k2_ntt_pass {tag}: equal pass by pass and to the stage loop's twin; "
+                f"{ms:.4f} ms a transform in {len(ntt.plan)} passes ({plan}) ({twin_note}bound "
+                f"{bms:.4f} ms by {by}, {bms / ms:.0%}); one-stage route {old:.4f} ms "
+                f"({old / ms:.1f}x); wall of one call {wall:.4f} ms")
+            recs[f"k2_ntt_{F.name}_2e{logn}_{op}"] = dict(
+                ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, err=err, old_ms=old, wall_ms=wall,
+                plan=plan, shape=f"{F.name} n=2^{logn} {op}")
+    log(f"[kernels] K2 k2_ntt_pass at small n, {len(small)} transforms equal pass by pass and to "
+        f"the stage loop's twin: {small[0]} .. {small[-1]}")
+
+
 # --------------------------------------------------------------------- msm
 def msm_check(seed: int) -> str:
     """The card's MSM (the port's bucket program on K3) against the exact
@@ -646,8 +744,9 @@ def toy_golden():
 
 
 # ------------------------------------------------------------------- slice
-DEFAULT_KERNELS = ("k1_mont_mul", "k2_butterfly", "k3_sw_add")
+DEFAULT_KERNELS = ("k1_mont_mul", "k2_ntt_pass", "k3_sw_add")
 MXU_KERNELS = ("k5a_mont_mul_mma", "k5b_butterfly_mma", "k5c_sw_add_mma")
+OFF_PATH = ("k2_butterfly",)  # K2's one-stage entry: launched by no path since k2_ntt_pass
 
 def message(n_blocks: int, seed: int) -> bytes:
     """n 32-byte chunks that each parse as one field element and survive
@@ -721,7 +820,7 @@ def run_slice(n_blocks: int, seed: int):
     for k in DEFAULT_KERNELS:
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
-    for k in MXU_KERNELS:
+    for k in MXU_KERNELS + OFF_PATH:
         if launches.get(k, 0):
             raise AssertionError(f"kernel {k} launched in the default configuration")
     snap = metrics.registry().snapshot()
@@ -915,7 +1014,7 @@ def run_sale(n_blocks: int, seed: int):
     for k in MXU_KERNELS:
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"kernel {k} was not launched in the sale under ZKCP_MXU=1")
-    for k in DEFAULT_KERNELS:
+    for k in DEFAULT_KERNELS + OFF_PATH:
         if launches.get(k, 0):
             raise AssertionError(f"kernel {k} launched under ZKCP_MXU=1")
     snap = metrics.registry().snapshot()
@@ -980,12 +1079,14 @@ def plonk_exact(seed: int) -> str:
             "fold equal to the host fold's")
 
 
-def run_plonk(n: int, seed: int):
+def run_plonk(n: int, seed: int, own: bool = True):
     """The halo2-path PLONKish prover on the card (benchmarks/
     drive_plonk_k12.py on the port): the ElGamal circuit over Pallas at
     n rows (the reference's k = 12), setup, two proves (the second warm),
     verify, a tampered instance refused; in the default configuration
-    (K1-K3).  Returns (launches over the phase, seconds)."""
+    (K1-K3).  `own`: the package is this checkout's, so the kernels it
+    launched must be this tree's path.  Returns (launches over the phase,
+    seconds)."""
     from contangle_zkcp_tpu_torch.ops import cuda_lib
     from contangle_zkcp_tpu_torch.plonkish.prover import PlonkSystem
     from contangle_zkcp_tpu_torch.utils import metrics
@@ -998,8 +1099,11 @@ def run_plonk(n: int, seed: int):
     system = PlonkSystem(meta, n, asg, use_device=True, device="cuda")
     torch.cuda.synchronize()
     times["setup"] = time.time() - t0
+    timers = {k: round(v["total_sec"], 4) for k, v in sorted(metrics.registry().snapshot()["timers"].items())
+              if k.startswith("plonk.setup.")}
     log(f"[plonk] setup n={n} (ext {system.ext}, IPA {system.ipa.n} generators): "
-        f"{times['setup']:.3f} s; launches {json.dumps(dict(cuda_lib.LAUNCHES), sort_keys=True)}")
+        f"{times['setup']:.3f} s; launches {json.dumps(dict(cuda_lib.LAUNCHES), sort_keys=True)}; "
+        f"timers (s) {json.dumps(timers)}")
     for rep, name in enumerate(("prove_cold", "prove_warm")):
         metrics.registry().reset()
         before = dict(cuda_lib.LAUNCHES)
@@ -1023,10 +1127,10 @@ def run_plonk(n: int, seed: int):
     log(f"[plonk] tampered instance: rejected, {time.time() - t0:.3f} s")
     launches = dict(cuda_lib.LAUNCHES)
     log(f"[plonk] launches over the phase: {json.dumps(launches, sort_keys=True)}")
-    for k in DEFAULT_KERNELS:
+    for k in DEFAULT_KERNELS if own else ():
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"kernel {k} was not launched on the PLONKish path")
-    for k in MXU_KERNELS:
+    for k in MXU_KERNELS + OFF_PATH if own else ():
         if launches.get(k, 0):
             raise AssertionError(f"kernel {k} launched in the default configuration")
     return launches, times
@@ -1039,6 +1143,8 @@ KERNEL_ROWS = (
      "k1_bls12_381_fr", "k1_bls12_381_fq", "fr n=2^18"),
     ("k2_butterfly", "k2_butterfly.cu", "contangle_zkcp_tpu/ops/pallas_mont.py:371",
      "k2", None, "fr n/2=2^17"),
+    ("k2_ntt_pass", "k2_ntt.cu", "contangle_zkcp_tpu/ops/pallas_mont.py:371",
+     "k2_ntt_bls12_381_fr_2e18_forward", None, "fr n=2^18 forward, one transform"),
     ("k3_sw_add", "k3_sw_add.cu", "contangle_zkcp_tpu/ops/pallas_curve.py:188",
      "k3", None, "g1 n=2^16"),
     ("k4_field_mul", "k1_mont_mul.cu", "contangle_zkcp_tpu/ops/pallas_field.py:156",
@@ -1056,6 +1162,8 @@ KERNEL_ROWS = (
 MORE_SHAPES = {
     "k1_mont_mul": ("k1_pasta_fp", "k1_bw6"),
     "k2_butterfly": ("k2_pasta_fp", "k2_bw6"),
+    "k2_ntt_pass": tuple(f"k2_ntt_{f}_2e{k}_{op}" for f, k in (
+        ("bls12_381_fr", 18), ("pasta_fp", 15), ("pasta_fp", 12)) for op in NTT_OPS)[1:],
     "k3_sw_add": ("k3_vesta_2e12", "k3_vesta_2e16"),
     "k4_field_mul": ("k4_bw6",),
     "k5a_mont_mul_mma": ("k5a_bw6",),
@@ -1086,6 +1194,10 @@ def kernel_line(recs, launches):
             row.update(ms_n2e20=r["ms_n2e20"], bound_ms_n2e20=r["bound_ms_n2e20"])
         if name == "k3_sw_add":
             row.update(fold=recs["k3_fold"])
+        if name == "k2_ntt_pass":
+            row.update(old_ms=r["old_ms"], wall_ms=r["wall_ms"], plan=r["plan"])
+            for m, rec in zip(MORE_SHAPES[name], row["more"]):
+                rec.update(old_ms=recs[m]["old_ms"], wall_ms=recs[m]["wall_ms"], plan=recs[m]["plan"])
         if fq_key:
             f = recs[fq_key]
             row.update(fq_ms=f["ms"], fq_plain_ms=f["plain_ms"], fq_bound_ms=f["bound_ms"])
@@ -1103,12 +1215,16 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (a quick run; prints no result line)")
+    ap.add_argument("--plonk-only", action="store_true",
+                    help="the build and the [plonk] phase alone (prints no result line)")
+    ap.add_argument("--root", default=ROOT,
+                    help="the checkout whose port package is driven (default: this script's)")
     args = ap.parse_args()
     t_start = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.root))
     try:
         from contangle_zkcp_tpu_torch.ops import cuda_lib
     except ImportError as e:
@@ -1127,6 +1243,10 @@ def main() -> int:
     log(f"[build] {os.path.relpath(path, ROOT)} in {time.time() - t0:.2f} s "
         f"(one nvcc per source, all started together, sm_90a)")
 
+    if args.plonk_only:
+        run_plonk(args.plonk_rows, args.seed, own=os.path.samefile(args.root, ROOT))
+        log(f"[done] plonk phase only: wall {time.time() - t_start:.1f} s")
+        return 0
     log(f"[bound] integer rate: {set_int_rate()}; int8 tensor rate {INT8_MMA_OPS_PER_S:.4g} op/s")
     recs = check_kernels(args.seed)
     if args.kernels_only:

@@ -7,6 +7,7 @@ hand-written CUDA kernels (csrc/):
 
   K1  csrc/k1_mont_mul.cu        Montgomery multiply          (ops/mont.py)
   K2  csrc/k2_butterfly.cu       fused NTT butterfly          (ops/mont.py)
+      csrc/k2_ntt.cu             several NTT stages a launch  (ops/mont.py ntt_pass)
   K3  csrc/k3_sw_add.cu          complete G1 point add        (ops/curve_add.py)
   K4  csrc/k1_mont_mul.cu        row-major multiply entry     (ops/field_mul.py)
   K5a csrc/k5a_mont_mul_mma.cu   K1 on the int8 tensor cores  (ops/mont_mma.py)

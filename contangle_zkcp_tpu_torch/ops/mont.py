@@ -1,13 +1,18 @@
-"""K1 (Montgomery multiply) and K2 (NTT butterfly): wrappers and twins.
+"""K1 (Montgomery multiply) and K2 (NTT butterfly, and several NTT stages
+a launch): wrappers and twins.
 
-Under `ZKCP_MXU=1` both wrappers route to their tensor-core variants K5a
-and K5b (ops/mont_mma.py), as the reference's engines do.
+Under `ZKCP_MXU=1` `mont_mul` and `butterfly` route to their tensor-core
+variants K5a and K5b (ops/mont_mma.py), as the reference's engines do.
 
 Port of `contangle_zkcp_tpu/ops/pallas_mont.py` (`MontMulLanes.mul_t`,
-`MontMulLanes.butterfly_t`).  Operands are `(n, L)` int32 tensors of
-16-bit limbs, canonical, Montgomery form (R = 2^(16 L)), batch-major: the
-layout of the JAX package's public functions.  The kernels pack limb pairs
-into 32-bit words themselves (csrc/mont.cuh).
+`MontMulLanes.butterfly_t`).  `butterfly` is one NTT stage at
+`butterfly_t`'s own boundary (csrc/k2_butterfly.cu); `ntt_pass` runs
+several stages of the port's NTT in one launch, with the bit reversal
+and the scalings fused (csrc/k2_ntt.cu), and is what ops/ntt.py calls.
+Operands are `(n, L)` int32 tensors of 16-bit limbs, canonical,
+Montgomery form (R = 2^(16 L)), batch-major: the layout of the JAX
+package's public functions.  The kernels pack limb pairs into 32-bit
+words themselves (csrc/mont.cuh).
 
 A wrapper launches its CUDA kernel for a CUDA tensor and raises if it
 cannot; it takes the plain torch twin only for a tensor on the CPU.  The
@@ -19,6 +24,7 @@ serve only as the yardstick `chip_smoke.py` holds the kernels against.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
 import torch
 
@@ -206,3 +212,120 @@ def butterfly(F, u, v, tw):
     cuda_lib.LAUNCHES["k2_butterfly"] += 1
     cuda_lib.check(rc, "k2_butterfly")
     return hi, lo
+
+
+# ------------------------------------------------- NTT passes (K2, redesigned)
+#
+# One launch of k2_ntt_pass runs stages s0 .. s0+t-1 of the radix-2
+# decimation-in-time loop (stage s: block m = 2^(s+1), pairs (i, i + m/2),
+# twiddle w^(j n/m) for j = i mod m/2) over the whole (n, L) array.  Its
+# constants are packed: the twiddle table (w^j, j < n/2) and the pre- and
+# post-scales are rows of L/2 little-endian 32-bit words (`pack_words`),
+# made once per NTT; the array itself crosses the boundary as limbs.
+
+def pack_words(t):
+    """(m, L) int32 limbs -> (m, L/2) int32 words, limb pairs lo | hi << 16."""
+    x = t.to(torch.int64)
+    w = x[:, 0::2] | (x[:, 1::2] << 16)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32).contiguous()
+
+
+def unpack_words(w):
+    """(m, L/2) int32 words -> (m, L) int32 limbs."""
+    x = w.to(torch.int64) & 0xFFFFFFFF
+    limbs = torch.stack([x & lb.LIMB_MASK, x >> lb.LIMB_BITS], dim=-1)
+    return limbs.reshape(w.shape[0], -1).to(torch.int32)
+
+
+@lru_cache(maxsize=None)
+def _bit_reverse_perm(n: int, device: str) -> torch.Tensor:
+    bits = n.bit_length() - 1
+    idx = torch.arange(n, dtype=torch.int64)
+    rev = torch.zeros(n, dtype=torch.int64)
+    for b in range(bits):
+        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    return rev.to(device)
+
+
+def bit_reverse_perm(n: int, device="cpu") -> torch.Tensor:
+    """(n,) int64: i -> i with its log2 n bits reversed; one tensor per
+    (n, device), kept (no host copy once made, so CUDA graphs may capture
+    its users)."""
+    return _bit_reverse_perm(n, str(torch.device(device)))
+
+
+def ntt_stage(F, a, tw, s: int, bf):
+    """Stage s of the loop on (n, L) limbs, with (n/2, L) twiddle limbs tw:
+    ONE call of `bf` (butterfly, or butterfly_plain) over the stage's n/2
+    (u, v, twiddle) triples, the block structure only in the reshapes."""
+    n, L = a.shape
+    m = 1 << (s + 1)
+    half = m // 2
+    stw = aligned(tw[:: n // m][:half][None].expand(n // m, half, L).reshape(n // 2, L))
+    blk = a.reshape(n // m, 2, half, L)
+    u = aligned(blk[:, 0].reshape(n // 2, L))
+    v = aligned(blk[:, 1].reshape(n // 2, L))
+    hi, lo = bf(F, u, v, stw)
+    return torch.stack([hi.reshape(n // m, half, L), lo.reshape(n // m, half, L)], dim=1).reshape(n, L)
+
+
+def ntt_pass_plain(F, a, table, s0: int, t: int, pre=None, post=None, gather: bool = False):
+    """Plain torch version of one k2_ntt_pass launch: a * pre (pre indexed by
+    source position), the bit-reversal gather, stages s0 .. s0+t-1 through
+    butterfly_plain, times post ((n, L/2) by position, or (1, L/2) for all)."""
+    n = a.shape[0]
+    x = a
+    if pre is not None:
+        x = mont_mul_plain(F, x, unpack_words(pre))
+    if gather:
+        x = x.index_select(0, bit_reverse_perm(n, x.device))
+    tw = unpack_words(table)
+    for s in range(s0, s0 + t):
+        x = ntt_stage(F, x, tw, s, butterfly_plain)
+    if post is not None:
+        x = mont_mul_plain(F, x, unpack_words(post))
+    return x
+
+
+def _check_words(F, w, rows, what, like):
+    if w.dtype != torch.int32 or w.dim() != 2 or w.shape[1] != F.L // 2 or w.shape[0] not in rows:
+        raise ValueError(f"{what}: expected int32 ({' or '.join(map(str, rows))}, {F.L // 2}) words, "
+                         f"got {w.dtype} {tuple(w.shape)}")
+    if w.device != like.device:
+        raise ValueError(f"{what}: on {w.device}, the array on {like.device}")
+    if not w.is_contiguous() or (w.is_cuda and w.data_ptr() % 16):
+        raise ValueError(f"{what}: must be contiguous (and 16-byte aligned on CUDA)")
+
+
+def ntt_pass(F, a, table, s0: int, t: int, pre=None, post=None, gather: bool = False):
+    """K2, redesigned: stages s0 .. s0+t-1 of the NTT in one launch of
+    k2_ntt_pass (csrc/k2_ntt.cu) for a CUDA array, `ntt_pass_plain` for a
+    CPU one.  a: (n, L) limbs, n a power of two; table: (n/2, L/2) packed
+    twiddle words; pre (n, L/2), post (n or 1, L/2) words; gather (s0 = 0
+    only) reads the input in bit-reversed order.  Returns a new array."""
+    n = check_operands(F, a)
+    logn = n.bit_length() - 1
+    if n < 2 or n & (n - 1):
+        raise ValueError(f"ntt_pass: n = {n} is not a power of two >= 2")
+    if not (s0 >= 0 and t >= 1 and s0 + t <= logn) or (gather and s0 != 0):
+        raise ValueError(f"ntt_pass: stages {s0} .. {s0 + t - 1} of {logn} (gather {gather})")
+    _check_words(F, table, (n // 2,), "table", a)
+    if pre is not None:
+        _check_words(F, pre, (n,), "pre", a)
+    if post is not None:
+        _check_words(F, post, (1, n), "post", a)
+    if not a.is_cuda:
+        return ntt_pass_plain(F, a, table, s0, t, pre, post, gather)
+    if F.L != 16:
+        raise ValueError(f"k2_ntt_pass is built for 16-limb fields only (L = {F.L})")
+    p, n0 = _words(F)
+    out = torch.empty_like(a)
+    rc = cuda_lib.lib().k2_ntt_pass(  # the kernel's launcher picks its tile and threads
+        a.data_ptr(), out.data_ptr(), table.data_ptr(),
+        None if pre is None else pre.data_ptr(), None if post is None else post.data_ptr(),
+        int(post is not None and post.shape[0] == n), n, s0, t, int(gather),
+        F.L // 2, p, n0, cuda_lib.stream_ptr(a),
+    )
+    cuda_lib.LAUNCHES["k2_ntt_pass"] += 1
+    cuda_lib.check(rc, "k2_ntt_pass")
+    return out

@@ -21,8 +21,8 @@ The IPA basis is sized 2n to hold the extra B coefficients.
 
 Work placement, on `device` (default "cuda"): every domain transform
 (iNTT of columns, coset evaluation on the extended domain, quotient
-interpolation) is the port's NTT over Pasta Fp, each stage one launch of
-kernel K2; with `use_device=True` the commitment MSMs and the IPA
+interpolation) is the port's NTT over Pasta Fp, a transform in two
+launches of kernel K2 (k2_ntt_pass); with `use_device=True` the commitment MSMs and the IPA
 generator fold run on the device (plonkish/ipa.py, kernel K3 over Vesta)
 and the quotient is assembled there (plonkish/quotient_device.py, kernel
 K1 over Pasta Fp); otherwise both are exact host arithmetic.  The
@@ -156,7 +156,8 @@ class PlonkSystem:
         self.ext = ext
         # IPA basis 2n: committed polynomials carry BLIND extra coeffs
         self.device = torch.device(device)
-        self.ipa = IPA(2 * n, use_device_msm=use_device, device=device)
+        with metrics.timer("plonk.setup.ipa"):
+            self.ipa = IPA(2 * n, use_device_msm=use_device, device=device)
         self.domain_w = fi.root_of_unity(P, n)
         self.use_device = use_device
         self._qdev = None  # lazy QuotientDevice (built once per structure)
@@ -167,35 +168,40 @@ class PlonkSystem:
         n = self.n
         m = len(self.perm_cols)
         deltas = [pow(GEN, j, P) for j in range(m)]
-        # sigma as cell permutation from copy cycles
-        cell_map = {
-            (k, i, r): (k, i, r) for k, i in self.perm_cols for r in range(n)
-        }
-        pairs = list(asg.copies) + [
-            (cell, ("instance", icol, irow))
-            for cell, icol, irow in asg.instance_cells
-        ]
-        # union into cycles via successor-swapping (standard plonk trick)
-        for a, b in pairs:
-            ca, cb = cell_map[a], cell_map[b]
-            cell_map[a], cell_map[b] = cb, ca
-        w = self.domain_w
-        ws = [pow(w, r, P) for r in range(n)]
-        sigma_evals = []
-        for k, i in self.perm_cols:
-            col = []
-            for r in range(n):
-                tk, ti, tr = cell_map[(k, i, r)]
-                j = self.perm_cols.index((tk, ti))
-                col.append(deltas[j] * ws[tr] % P)
-            sigma_evals.append(col)
-        sigma_polys = [_coeffs_from_evals(c, self.device) for c in sigma_evals]
-        fixed_polys = [_coeffs_from_evals(list(c), self.device) for c in asg.fixed]
+        with metrics.timer("plonk.setup.sigma"):  # host: copy cycles -> sigma evaluations
+            # sigma as cell permutation from copy cycles
+            cell_map = {
+                (k, i, r): (k, i, r) for k, i in self.perm_cols for r in range(n)
+            }
+            pairs = list(asg.copies) + [
+                (cell, ("instance", icol, irow))
+                for cell, icol, irow in asg.instance_cells
+            ]
+            # union into cycles via successor-swapping (standard plonk trick)
+            for a, b in pairs:
+                ca, cb = cell_map[a], cell_map[b]
+                cell_map[a], cell_map[b] = cb, ca
+            w = self.domain_w
+            ws = [pow(w, r, P) for r in range(n)]
+            sigma_evals = []
+            for k, i in self.perm_cols:
+                col = []
+                for r in range(n):
+                    tk, ti, tr = cell_map[(k, i, r)]
+                    j = self.perm_cols.index((tk, ti))
+                    col.append(deltas[j] * ws[tr] % P)
+                sigma_evals.append(col)
+        with metrics.timer("plonk.setup.intt"):
+            sigma_polys = [_coeffs_from_evals(c, self.device) for c in sigma_evals]
+            fixed_polys = [_coeffs_from_evals(list(c), self.device) for c in asg.fixed]
+        with metrics.timer("plonk.setup.commits"):
+            fixed_comms = [self.ipa.commit(c) for c in fixed_polys]
+            sigma_comms = [self.ipa.commit(c) for c in sigma_polys]
         vk = PlonkVK(
             n=n,
             ext=self.ext,
-            fixed_comms=[self.ipa.commit(c) for c in fixed_polys],
-            sigma_comms=[self.ipa.commit(c) for c in sigma_polys],
+            fixed_comms=fixed_comms,
+            sigma_comms=sigma_comms,
             perm_cols=self.perm_cols,
             deltas=deltas,
         )

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""What nvcc made of the point-add kernels K3 and K5c: registers, spills
-and SASS instruction counts.
+"""What nvcc made of the point-add kernels K3 and K5c and of K2's two
+entries: registers, spills and SASS instruction counts.
 
     python3 scripts/kernel_sass.py [--root DIR] [--out FILE]
 
-Compiles `k3_sw_add.cu` and `k5c_sw_add_mma.cu` of the port under DIR
-(default: this checkout; another tree, such as an older commit unpacked
-with `git archive`, compares designs) to cubins for sm_90a with
-`-Xptxas -v`, then disassembles them with `cuobjdump -sass`.  Prints, for
-each instance of `k3_kernel` and `k5c_kernel`: registers, stack and spill
+Compiles `k3_sw_add.cu`, `k5c_sw_add_mma.cu`, `k2_butterfly.cu` and
+`k2_ntt.cu` of the port under DIR (default: this checkout; another tree,
+such as an older commit unpacked with `git archive`, compares designs) to
+cubins for sm_90a with `-Xptxas -v`, then disassembles them with
+`cuobjdump -sass`.  Prints, for each instance of `k3_kernel`,
+`k5c_kernel`, `k2_kernel` and `k2_ntt_kernel`: registers, stack and spill
 bytes, the number of SASS instructions and the most frequent opcodes
-(with their modifiers: IMAD.WIDE.U32, IADD3.X, ...).  The kernels are
-straight-line code per point (K5c: per point and lane of its loop), so
-the static count is the count per point.  `--out` also writes the full
+(with their modifiers: IMAD.WIDE.U32, IADD3.X, ...).  The point adds and
+`k2_kernel` are straight-line code per point or butterfly (K5c: per point
+and lane of its loop), so the static count is the count per point or
+butterfly; `k2_ntt_kernel` loops over its stages, and its static count
+holds five inlined Montgomery products (one a butterfly, two each for the
+pre- and post-scales).  `--out` also writes the full
 histograms as JSON.  Needs nvcc and cuobjdump (the CUDA toolkit); no GPU.
 """
 
@@ -29,8 +33,8 @@ import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = ("k3_sw_add.cu", "k5c_sw_add_mma.cu")
-KERNEL = re.compile(r"(k3_kernel|k5c_kernel)ILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?")
+SOURCES = ("k3_sw_add.cu", "k5c_sw_add_mma.cu", "k2_butterfly.cu", "k2_ntt.cu")
+KERNEL = re.compile(r"(k3_kernel|k5c_kernel|k2_kernel|k2_ntt_kernel)ILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?")
 SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
 GROUPS = {  # opcode families reported apart, by prefix
     "IMAD": ("IMAD",),

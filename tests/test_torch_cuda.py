@@ -1,6 +1,8 @@
 """The port's CUDA kernels (K1-K3, K4, and the tensor-core K5a-K5c) against
 their plain torch twins on the card, at awkward sizes (empty, one element,
 odd counts, a ragged last warp) and through the wrappers' operand checks;
+K2's NTT passes (k2_ntt_pass) against their twins pass by pass, and whole
+transforms against the stage loop, from n = 2 to 2^15;
 the multiplies and butterflies also at W = 24 (BW6-761 Fq), the point adds
 also over the Pasta curves (the strict arithmetic of csrc/fp_lazy.cuh).  Needs an NVIDIA Hopper GPU and nvcc; skips
 elsewhere.  Run on the card (this file imports no JAX, so the suite's
@@ -17,6 +19,7 @@ from contangle_zkcp_tpu_torch.curves import instances as ci
 from contangle_zkcp_tpu_torch.curves.weierstrass import SWDevice
 from contangle_zkcp_tpu_torch.fields import instances as tfi
 from contangle_zkcp_tpu_torch.ops import cuda_lib, curve_add, field_mul, mont, mont_mma
+from contangle_zkcp_tpu_torch.ops.ntt import NTT
 
 pytestmark = pytest.mark.cuda
 
@@ -55,6 +58,63 @@ def test_k2_equals_twin(card, name, n):
     hi, lo = mont.butterfly(F, u.to(card), v.to(card), w.to(card))
     phi, plo = mont.butterfly_plain(F, u, v, w)
     assert torch.equal(hi.cpu(), phi) and torch.equal(lo.cpu(), plo)
+
+
+NTT_OPS = ("forward", "inverse", "coset_forward", "coset_inverse")
+
+
+@pytest.mark.parametrize("n", [2, 4, 1024, 4096, 1 << 15])
+@pytest.mark.parametrize("name,g", [("bls12_381_fr", 7), ("pasta_fp", 5)])
+def test_k2_ntt_pass_equals_twin_and_stage_loop(card, name, g, n):
+    """Each pass of each operation equal to ntt_pass_plain on the same
+    input; the transform equal to the stage loop's twin (one pass of all
+    stages) and launching k2_ntt_pass once a pass of the plan."""
+    F = getattr(tfi, name)()
+    ntt = NTT(F, n, device=card)
+    a = rand(F, n, 21).to(card)
+    for op in NTT_OPS:
+        table, pre, post = ntt.pass_operands(op, g)
+        x, last = a, len(ntt.plan) - 1
+        for i, (s0, t) in enumerate(ntt.plan):
+            kw = dict(pre=pre if i == 0 else None, post=post if i == last else None, gather=i == 0)
+            got = mont.ntt_pass(F, x, table, s0, t, **kw)
+            assert torch.equal(got, mont.ntt_pass_plain(F, x, table, s0, t, **kw)), (op, s0, t)
+            x = got
+        before = cuda_lib.LAUNCHES["k2_ntt_pass"]
+        res = getattr(ntt, op)(a, *((g,) if op.startswith("coset") else ()))
+        assert cuda_lib.LAUNCHES["k2_ntt_pass"] == before + len(ntt.plan)
+        assert torch.equal(res, x)
+        assert torch.equal(res, mont.ntt_pass_plain(F, a, table, 0, ntt.logn, pre, post, gather=True))
+
+
+def test_k2_ntt_pass_operand_checks(card):
+    """L != 16, misaligned or misplaced operands, and a pass of more stages
+    than the kernel's tile holds raise on the card."""
+    F = tfi.bls12_381_fq()  # 24 limbs: no instance
+    ntt = NTT(tfi.bls12_381_fr(), 64, device="cpu")
+    a = rand(F, 64, 22).to(card)
+    with pytest.raises(ValueError):
+        mont.ntt_pass(F, a, torch.zeros(32, 12, dtype=torch.int32, device=card), 0, 6, gather=True)
+    Fr = ntt.F
+    x = rand(Fr, 64, 23).to(card)
+    table = ntt._tw_fwd_w.to(card)
+    flat = torch.zeros(32 * 8 + 1, dtype=torch.int32, device=card)
+    shifted = flat[1:].view(32, 8)  # 4-byte offset
+    shifted.copy_(table)
+    with pytest.raises(ValueError):
+        mont.ntt_pass(Fr, x, shifted, 0, 6, gather=True)
+    with pytest.raises(ValueError):
+        mont.ntt_pass(Fr, x, ntt._tw_fwd_w, 0, 6, gather=True)  # table on the CPU
+    lim = torch.zeros(64 * 16 + 4, dtype=torch.int32, device=card)
+    ok = lim[4:].view(64, 16)  # 16-byte offset: aligned
+    ok.copy_(x)
+    got = mont.ntt_pass(Fr, ok, table, 0, 6, gather=True)
+    assert torch.equal(got, mont.ntt_pass_plain(Fr, x, table, 0, 6, gather=True))
+    with pytest.raises(ValueError):
+        mont.ntt_pass(Fr, lim[1:1025].view(64, 16), table, 0, 6, gather=True)  # 4-byte offset
+    big = NTT(Fr, 1 << 13, device=card)  # 13 stages in one pass: above the 2^12 tile
+    with pytest.raises(RuntimeError):
+        mont.ntt_pass(Fr, rand(Fr, 1 << 13, 24).to(card), big._tw_fwd_w, 0, 13, gather=True)
 
 
 def curve_pairs(C, n):
@@ -229,4 +289,4 @@ def test_mxu_switch_routes_to_k5(card, monkeypatch):
     dev.add(P, P)
     counts = dict(cuda_lib.LAUNCHES)
     assert all(counts.get(k, 0) > 0 for k in ("k5a_mont_mul_mma", "k5b_butterfly_mma", "k5c_sw_add_mma"))
-    assert all(counts.get(k, 0) == 0 for k in ("k1_mont_mul", "k2_butterfly", "k3_sw_add"))
+    assert all(counts.get(k, 0) == 0 for k in ("k1_mont_mul", "k2_butterfly", "k2_ntt_pass", "k3_sw_add"))
