@@ -16,10 +16,13 @@ Phases, one line each as it finishes:
      points of the curve and on arbitrary triples; the PLONKish path's
      shapes (K1/K2 on Pasta Fp, K3/K5c on Vesta and Pallas in the strict
      arithmetic) and the W = 24 multiplies and butterflies (BW6-761 Fq);
-     K2's NTT passes (k2_ntt_pass) against their twins pass by pass and
-     each whole transform against the stage loop's twin (Fr n = 2^18,
-     Pasta Fp n = 2^15 and 2^12, and n = 2, 4, 1024), timed beside the
-     one-stage route it replaced (k2_butterfly and F.mul); with ptxas's
+     K5a also on edge values (0, 1, p - 1, p - 2); the NTT passes, K2's
+     (k2_ntt_pass) and the tensor-core K5b's (k5b_ntt_pass, ZKCP_MXU=1),
+     against their twins pass by pass and each whole transform against
+     its passes, the stage loop and the other kernel's transform (Fr
+     n = 2^19, 2^18, 2^15, 2^14, 2^13, Pasta Fp n = 2^15 and 2^12, and
+     n = 2, 4, 1024), timed beside the one-stage route each replaced
+     (k2_butterfly or k5b_butterfly_mma, with F.mul); with ptxas's
      registers and spills (`--kernels-only` stops here);
   4. a 256-point G1 MSM on the card against the exact host sum;
   5. a small reference: the toy Groth16 circuit of tests/test_groth16.py
@@ -28,16 +31,19 @@ Phases, one line each as it finishes:
      at N blocks (default 49,152) — compile (setup), encrypt + prove,
      verify, decrypt, and a tampered input that must be rejected — with
      the kernels' launch counts on that path (K1, k2_ntt_pass, K3; no
-     k2_butterfly);
+     k2_butterfly), then the same prove under ZKCP_MXU=1 with its
+     groth16.prove.ntt_h (K5a, k5b_ntt_pass, K5c; no k5b_butterfly_mma);
   7. the whole sale under ZKCP_MXU=1 (the tensor-core configuration) at
      N blocks (default 65,536): compile the three circuits, seller step 0
      (PoE + SampleEntries proof), buyer step 0 (verify, with the device
      Poseidon Merkle root), step 1 (key encryption), step 2 (adaptor
      signature), step 3 (broadcast on MockChain), step 4 (recover the key,
-     decrypt), over the local HTTP server and client, every proof real
-     Groth16; the plaintext must come back byte for byte, the seller must
-     be paid, a tampered adaptor signature must be refused, and K5a-K5c
-     must launch while K1-K3 (k2_ntt_pass and k2_butterfly) do not;
+     decrypt), with the provers' NTT domains, over the local HTTP server
+     and client, every proof real Groth16; the plaintext must come back
+     byte for byte, the seller must
+     be paid, a tampered adaptor signature must be refused, and K5a,
+     k5b_ntt_pass and K5c must launch while K1-K3 (k2_ntt_pass and
+     k2_butterfly) and the one-stage k5b_butterfly_mma do not;
   8. the PLONKish path held exactly to the CPU: the n = 128 ElGamal
      circuit's key and proof (one blinding seed) on the card equal the
      same calls on the CPU (the kernels' twins), and an IPA(1024)
@@ -262,8 +268,9 @@ def k5c_strict_int_ops(F):
 
 def ptxas_summary() -> str:
     """Registers and spills of the point-add kernels (every instance), of
-    the W = 24 instances of K1, K2, K5a and K5b and of k2_ntt_pass's
-    kernel, from the build's `-Xptxas -v` report."""
+    the W = 24 instances of K1, K2 and the one-stage K5b, of every K5a
+    instance and of the NTT passes' kernels (k2_ntt_pass, k5b_ntt_pass),
+    from the build's `-Xptxas -v` report."""
     from contangle_zkcp_tpu_torch.ops import cuda_lib
 
     out, cur, spill = [], None, ""
@@ -273,8 +280,8 @@ def ptxas_summary() -> str:
             arith = "strict" if m.group(4) == "1" else "lazy"
             cur = f"{m.group(1)}<{m.group(2)},{m.group(3)},{arith}>"
             continue
-        m = re.search(r"Compiling entry function '_Z\d+(k1_kernel|k2_kernel|k5a_kernel|k5b_kernel)ILi(24)E", line)
-        m = m or re.search(r"Compiling entry function '\S*?(k2_ntt_kernel)ILi(\d+)E", line)
+        m = re.search(r"Compiling entry function '_Z\d+(k1_kernel|k2_kernel|k5b_kernel)ILi(24)E", line)
+        m = m or re.search(r"Compiling entry function '\S*?(k2_ntt_kernel|k5b_ntt_kernel|k5a_kernel)ILi(\d+)E", line)
         if m:
             cur = f"{m.group(1)}<{m.group(2)}>"
             continue
@@ -354,6 +361,20 @@ def adversarial_batch(F, n, rng):
     return tuple(out[:3]), tuple(out[3:])
 
 
+def k5a_edges(F, n, rng):
+    """K5a on adversarial_batch's planes (each value 0, 1, p - 1 or p - 2
+    half of the time), three pairs, equal to its twin and to K1."""
+    from contangle_zkcp_tpu_torch.ops import mont, mont_mma
+
+    P, Q = adversarial_batch(F, n, rng)
+    for a, b in zip(P, Q):
+        got = mont_mma.mont_mul_mma(F, a, b)
+        check("K5a", got, mont_mma.mont_mul_mma_plain(F, a, b), f"twin (edge values, {F.name})")
+        check("K5a", got, mont.mont_mul(F, a, b), f"K1 (edge values, {F.name})")
+    log(f"[kernels] K5a {F.name} n={n}: edge values (0, 1, p - 1, p - 2), three pairs, equal to "
+        f"its twin and K1")
+
+
 def check(name, got, want, what):
     """Exact equality of two tensors or tuples; returns the max abs error."""
     got = got if isinstance(got, tuple) else (got,)
@@ -402,6 +423,7 @@ def check_kernels(seed: int):
         k5 = mont_mma.mont_mul_mma(F, a, b)
         err = check("K5a", k5, mont_mma.mont_mul_mma_plain(F, a, b), "twin")
         check("K5a", k5, k1, "K1")
+        k5a_edges(F, n, rng)
         measure(recs, f"k5a_{F.name}", f"K5a k5a_mont_mul_mma {F.name} n={n} (and equal to K1)",
                 lambda: mont_mma.mont_mul_mma(F, a, b), lambda: mont_mma.mont_mul_mma_plain(F, a, b),
                 100, 1, nbytes, n * mma_int_ops(F), n * mma_ops_per_elem(F), err=err)
@@ -580,6 +602,7 @@ def check_bw6(recs, rng):
     k5 = mont_mma.mont_mul_mma(F, a, b)
     err = check("K5a", k5, mont_mma.mont_mul_mma_plain(F, a, b), "twin (bw6_761_fq)")
     check("K5a", k5, k1, "K1 (bw6_761_fq)")
+    k5a_edges(F, n, rng)
     measure(recs, "k5a_bw6", f"K5a k5a_mont_mul_mma bw6_761_fq n={n} (and equal to K1)",
             lambda: mont_mma.mont_mul_mma(F, a, b), lambda: mont_mma.mont_mul_mma_plain(F, a, b),
             100, 1, nbytes, n * mma_int_ops(F), n * mma_ops_per_elem(F), err=err,
@@ -603,24 +626,66 @@ def check_bw6(recs, rng):
 NTT_OPS = ("forward", "inverse", "coset_forward", "coset_inverse")
 
 
+def k5b_ntt_counts(F, n: int, scaled: bool):
+    """(integer instructions, tensor-core operations) of one n-point
+    transform through k5b_ntt_pass: (n/2) log2 n butterflies of a K5
+    Montgomery product (mma_int_ops, mma_ops_per_elem) and an add and a
+    subtract (4W), plus n products when a pre- or post-scale is fused."""
+    w = F.L // 2
+    bfs = (n // 2) * (n.bit_length() - 1)
+    muls = bfs + (n if scaled else 0)
+    return bfs * 4 * w + muls * mma_int_ops(F), muls * mma_ops_per_elem(F)
+
+
+def ntt_time(recs, key, label, F, n, ntt, op, a, g, fn, twin, route, nbytes, ops, mma_ops, err):
+    """One transform's device time (CUDA-graph replays) beside the
+    one-stage route's and the twin's (first operation), its bound, and the
+    wall time of one call; logs a line and keeps a record."""
+    ms = cuda_ms(fn, 20, graph=True)
+    old = cuda_ms(route, 10, graph=True)
+    pms = cuda_ms(twin, 1, batches=3) if op == NTT_OPS[0] else None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 50 * 1e3
+    bms, by = bound(nbytes, ops, mma_ops)
+    plan = "+".join(str(t) for _, t in ntt.plan)
+    twin_note = f"twin {pms:.3f} ms, " if pms is not None else ""
+    log(f"[kernels] {label}: equal pass by pass, to the stage loop and across kernels; "
+        f"{ms:.4f} ms a transform in {len(ntt.plan)} passes ({plan}) ({twin_note}bound "
+        f"{bms:.4f} ms by {by}, {bms / ms:.0%}); one-stage route {old:.4f} ms "
+        f"({old / ms:.1f}x); wall of one call {wall:.4f} ms")
+    recs[key] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, err=err, old_ms=old,
+                     wall_ms=wall, plan=plan, shape=f"{F.name} n=2^{ntt.logn} {op}")
+
+
 def check_ntt(recs, rng):
-    """K2 redesigned (k2_ntt_pass): at the main path's transforms (the
-    Groth16 quotient's Fr n = 2^18; the PLONK prover's Pasta Fp n = 2^15,
-    where it runs coset_forward and coset_inverse, and 2^12, where it runs
-    inverse), all four operations at each (g = 7 and 5), and at n = 2, 4,
-    1024 (both fields, all four),
-    every pass equal to `ntt_pass_plain` on the same input and the whole
-    transform equal to the stage loop's twin (one pass of all stages).
-    At n >= 2^12: one transform's device time (CUDA-graph replays), its
-    bound, the twin's time (first operation), the one-stage route it
-    replaced (the stage loop through k2_butterfly with its F.mul scalings,
-    ntt.stage_route) timed beside it, and the wall time of one call."""
+    """The NTT passes, K2's (k2_ntt_pass) and, under ZKCP_MXU=1, K5b's
+    (k5b_ntt_pass), at the main paths' transforms (NTT_SHAPES): the Groth16
+    quotient's Fr n = 2^18 (the PoE at 49,152 blocks), and the sale's
+    2^19 (its PoE at 65,536 blocks: three passes), 2^14 (SampleEntries)
+    and 2^13 (key encryption), with 2^15 beside them; the PLONK prover's
+    Pasta Fp n = 2^15 (coset_forward, coset_inverse) and 2^12 (inverse);
+    and n = 2, 4, 1024 on both fields; all four operations at each (g = 7
+    and 5).  Every pass of each kernel equal to its twin on the same
+    input (`ntt_pass_plain`, `ntt_pass_mma_plain`), each whole transform
+    equal to its passes, to the
+    stage loop (K2's twin; under ZKCP_MXU=1 the one-stage route through
+    K5b's butterfly and K5a, ntt.stage_route) and to the other kernel's
+    transform.  At n >= 2^12, for each kernel: one transform's device time
+    (CUDA-graph replays), its bound, the twin's time (first operation),
+    the one-stage route it replaced (ntt.stage_route: k2_butterfly, or
+    k5b_butterfly_mma, with its F.mul scalings) timed beside it, and the
+    wall time of one call."""
     from contangle_zkcp_tpu_torch.fields import instances as fi
-    from contangle_zkcp_tpu_torch.ops import mont
+    from contangle_zkcp_tpu_torch.ops import mont, mont_mma
     from contangle_zkcp_tpu_torch.ops.ntt import NTT
 
     Fr, Fp = fi.bls12_381_fr(), fi.pasta_fp()
-    shapes = [(Fr, 1 << 18), (Fp, 1 << 15), (Fp, 1 << 12)]
+    fields = {F.name: F for F in (Fr, Fp)}
+    shapes = [(fields[f], 1 << k) for f, k in NTT_SHAPES]
     shapes += [(F, n) for F in (Fr, Fp) for n in (2, 4, 1024)]
     small = []
     for F, n in shapes:
@@ -632,48 +697,54 @@ def check_ntt(recs, rng):
             tag = f"{F.name} n=2^{logn} {op}"
             args = (g,) if op.startswith("coset") else ()
             table, pre, post = ntt.pass_operands(op, g)
-            x, last, err = a, len(ntt.plan) - 1, 0
-            for i, (s0, t) in enumerate(ntt.plan):
-                kw = dict(pre=pre if i == 0 else None, post=post if i == last else None, gather=i == 0)
-                got = mont.ntt_pass(F, x, table, s0, t, **kw)
-                err = max(err, check("k2_ntt_pass", got, mont.ntt_pass_plain(F, x, table, s0, t, **kw),
-                                     f"twin ({tag}, pass {s0}+{t})"))
-                x = got
+            outs, errs = {}, {}
+            for name, run, plain in (("k2", mont.ntt_pass, mont.ntt_pass_plain),
+                                     ("k5b", mont_mma.ntt_pass_mma, mont_mma.ntt_pass_mma_plain)):
+                x, last, err = a, len(ntt.plan) - 1, 0
+                for i, (s0, t) in enumerate(ntt.plan):
+                    kw = dict(pre=pre if i == 0 else None, post=post if i == last else None,
+                              gather=i == 0)
+                    got = run(F, x, table, s0, t, **kw)
+                    err = max(err, check(f"{name}_ntt_pass", got, plain(F, x, table, s0, t, **kw),
+                                         f"twin ({tag}, pass {s0}+{t})"))
+                    x = got
+                outs[name], errs[name] = x, err
 
             def twin():
                 return mont.ntt_pass_plain(F, a, table, 0, logn, pre, post, gather=True)
 
+            def mxu(fn):
+                os.environ["ZKCP_MXU"] = "1"
+                try:
+                    return fn()
+                finally:
+                    os.environ.pop("ZKCP_MXU", None)
+
             res = getattr(ntt, op)(a, *args)
-            check("NTT", res, x, f"its passes ({tag})")
+            check("NTT", res, outs["k2"], f"its passes ({tag})")
             check("NTT", res, twin(), f"the stage loop's twin ({tag})")
+            res5 = mxu(lambda: getattr(ntt, op)(a, *args))
+            check("NTT under ZKCP_MXU=1", res5, outs["k5b"], f"its passes ({tag})")
+            check("NTT under ZKCP_MXU=1", res5, mxu(lambda: ntt.stage_route(op, a, g)),
+                  f"the stage loop through K5b and K5a ({tag})")
+            check("NTT under ZKCP_MXU=1", res5, res, f"k2_ntt_pass's transform ({tag})")
             if n < 1 << 12:
                 small.append(f"{F.name} n={n} {op}")
                 continue
-            fn = lambda: getattr(ntt, op)(a, *args)  # noqa: E731
-            ms = cuda_ms(fn, 20, graph=True)
-            old = cuda_ms(lambda: ntt.stage_route(op, a, g), 10, graph=True)
-            pms = cuda_ms(twin, 1, batches=3) if op == NTT_OPS[0] else None
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(50):
-                fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / 50 * 1e3
             scale = pre if pre is not None else post  # words: n rows, or 1 (n^-1)
             # limbs in and out, the table and the scale as 32-bit words
             nbytes = 2 * n * 4 * F.L + (n // 2 + (0 if scale is None else scale.shape[0])) * 2 * F.L
-            bms, by = bound(nbytes, k2_ntt_int_ops(F, n, scale is not None))
-            plan = "+".join(str(t) for _, t in ntt.plan)
-            twin_note = f"twin {pms:.3f} ms, " if pms is not None else ""
-            log(f"[kernels] K2 k2_ntt_pass {tag}: equal pass by pass and to the stage loop's twin; "
-                f"{ms:.4f} ms a transform in {len(ntt.plan)} passes ({plan}) ({twin_note}bound "
-                f"{bms:.4f} ms by {by}, {bms / ms:.0%}); one-stage route {old:.4f} ms "
-                f"({old / ms:.1f}x); wall of one call {wall:.4f} ms")
-            recs[f"k2_ntt_{F.name}_2e{logn}_{op}"] = dict(
-                ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, err=err, old_ms=old, wall_ms=wall,
-                plan=plan, shape=f"{F.name} n=2^{logn} {op}")
-    log(f"[kernels] K2 k2_ntt_pass at small n, {len(small)} transforms equal pass by pass and to "
-        f"the stage loop's twin: {small[0]} .. {small[-1]}")
+            ntt_time(recs, f"k2_ntt_{F.name}_2e{logn}_{op}", f"K2 k2_ntt_pass {tag}", F, n, ntt, op,
+                     a, g, lambda: getattr(ntt, op)(a, *args), twin,
+                     lambda: ntt.stage_route(op, a, g), nbytes,
+                     k2_ntt_int_ops(F, n, scale is not None), 0.0, errs["k2"])
+            ops5, mma5 = k5b_ntt_counts(F, n, scale is not None)
+            ntt_time(recs, f"k5b_ntt_{F.name}_2e{logn}_{op}", f"K5b k5b_ntt_pass (ZKCP_MXU=1) {tag}",
+                     F, n, ntt, op, a, g, lambda: mxu(lambda: getattr(ntt, op)(a, *args)),
+                     lambda: mont_mma.ntt_pass_mma_plain(F, a, table, 0, logn, pre, post, gather=True),
+                     lambda: mxu(lambda: ntt.stage_route(op, a, g)), nbytes, ops5, mma5, errs["k5b"])
+    log(f"[kernels] k2_ntt_pass and k5b_ntt_pass at small n, {len(small)} transforms each equal pass "
+        f"by pass, to the stage loops and to each other: {small[0]} .. {small[-1]}")
 
 
 # --------------------------------------------------------------------- msm
@@ -745,8 +816,9 @@ def toy_golden():
 
 # ------------------------------------------------------------------- slice
 DEFAULT_KERNELS = ("k1_mont_mul", "k2_ntt_pass", "k3_sw_add")
-MXU_KERNELS = ("k5a_mont_mul_mma", "k5b_butterfly_mma", "k5c_sw_add_mma")
-OFF_PATH = ("k2_butterfly",)  # K2's one-stage entry: launched by no path since k2_ntt_pass
+MXU_KERNELS = ("k5a_mont_mul_mma", "k5b_ntt_pass", "k5c_sw_add_mma")
+# the one-stage entries of K2 and K5b: launched by no path since the passes
+OFF_PATH = ("k2_butterfly", "k5b_butterfly_mma")
 
 def message(n_blocks: int, seed: int) -> bytes:
     """n 32-byte chunks that each parse as one field element and survive
@@ -834,17 +906,27 @@ def run_slice(n_blocks: int, seed: int):
     os.environ["ZKCP_MXU"] = "1"
     try:
         before = dict(cuda_lib.LAUNCHES)
-        prove0 = metrics.registry().snapshot()["timers"]["groth16.prove"]["total_sec"]
+        timers0 = metrics.registry().snapshot()["timers"]
         t0 = time.time()
         cipher, proof = zk.encrypt(msg, pk_pt, rng)
         torch.cuda.synchronize()
         times["encrypt_prove_mxu"] = time.time() - t0
-        prove = metrics.registry().snapshot()["timers"]["groth16.prove"]["total_sec"] - prove0
+        timers1 = metrics.registry().snapshot()["timers"]
+        prove, ntt_h = (timers1[k]["total_sec"] - timers0[k]["total_sec"]
+                        for k in ("groth16.prove", "groth16.prove.ntt_h"))
+        times["ntt_h_mxu"] = ntt_h
         if not zk.verify_proof(proof, cipher):
             raise AssertionError("verifier rejected the ZKCP_MXU=1 proof")
         delta = {k: v - before.get(k, 0) for k, v in cuda_lib.LAUNCHES.items() if v - before.get(k, 0)}
         log(f"[slice] encrypt + prove under ZKCP_MXU=1: {times['encrypt_prove_mxu']:.3f} s "
-            f"(prove {prove:.3f} s), verifies; launches {json.dumps(delta, sort_keys=True)}")
+            f"(prove {prove:.3f} s, of which groth16.prove.ntt_h {ntt_h:.4f} s), verifies; "
+            f"launches {json.dumps(delta, sort_keys=True)}")
+        for k in MXU_KERNELS:
+            if not delta.get(k):
+                raise AssertionError(f"kernel {k} was not launched by the ZKCP_MXU=1 prove")
+        for k in DEFAULT_KERNELS + OFF_PATH:
+            if delta.get(k):
+                raise AssertionError(f"kernel {k} launched by the ZKCP_MXU=1 prove")
     finally:
         os.environ.pop("ZKCP_MXU", None)
     shutil.rmtree(build_dir, ignore_errors=True)
@@ -863,6 +945,7 @@ def run_sale(n_blocks: int, seed: int):
 
     from contangle_zkcp_tpu_torch.circuits import elgamal
     from contangle_zkcp_tpu_torch.curves import instances as ci
+    from contangle_zkcp_tpu_torch.groth16 import groth16 as g16mod
     from contangle_zkcp_tpu_torch.ops import cuda_lib
     from contangle_zkcp_tpu_torch.utils import metrics
     from contangle_zkcp_tpu_torch.utils.errors import ProtocolError
@@ -898,6 +981,9 @@ def run_sale(n_blocks: int, seed: int):
     metrics.registry().reset()
     cuda_lib.reset_launches()
     seen = {}
+    domains = set()  # the Groth16 provers' NTT sizes over the sale
+    engine = g16mod._ntt_engine
+    g16mod._ntt_engine = lambda Fr, d, device: domains.add(d) or engine(Fr, d, device)
 
     def proving_s():
         return metrics.registry().snapshot()["timers"].get("groth16.prove", {}).get("total_sec", 0.0)
@@ -1008,8 +1094,10 @@ def run_sale(n_blocks: int, seed: int):
             f"steps 0b-4 {times['protocol']:.3f} s")
     finally:
         os.environ.pop("ZKCP_MXU", None)
+        g16mod._ntt_engine = engine
         shutil.rmtree(tmp, ignore_errors=True)
     launches = dict(cuda_lib.LAUNCHES)
+    log(f"[sale] NTT domains: {', '.join(f'2^{d.bit_length() - 1}' for d in sorted(domains))}")
     log(f"[sale] launches over the sale: {json.dumps(launches, sort_keys=True)}")
     for k in MXU_KERNELS:
         if launches.get(k, 0) <= 0:
@@ -1153,17 +1241,23 @@ KERNEL_ROWS = (
      "k5a_bls12_381_fr", "k5a_bls12_381_fq", "fr n=2^18"),
     ("k5b_butterfly_mma", "k5b_butterfly_mma.cu", "contangle_zkcp_tpu/ops/pallas_mont.py:325",
      "k5b", None, "fr n/2=2^17"),
+    ("k5b_ntt_pass", "k5b_ntt_mma.cu", "contangle_zkcp_tpu/ops/pallas_mont.py:325",
+     "k5b_ntt_bls12_381_fr_2e18_forward", None, "fr n=2^18 forward, one transform (ZKCP_MXU=1)"),
     ("k5c_sw_add_mma", "k5c_sw_add_mma.cu", "contangle_zkcp_tpu/ops/pallas_curve.py:153",
      "k5c", None, "g1 n=2^16"),
 )
 
 
-# the PLONKish path's shapes and the W = 24 ones, per kernel (record keys)
+# the transforms timed (check_ntt; the sale's domains as its "[sale] NTT
+# domains" line reads them), and the PLONKish path's shapes and the W = 24
+# ones, per kernel (record keys)
+NTT_SHAPES = (("bls12_381_fr", 18), ("bls12_381_fr", 19), ("bls12_381_fr", 15),
+              ("bls12_381_fr", 14), ("bls12_381_fr", 13), ("pasta_fp", 15), ("pasta_fp", 12))
 MORE_SHAPES = {
     "k1_mont_mul": ("k1_pasta_fp", "k1_bw6"),
     "k2_butterfly": ("k2_pasta_fp", "k2_bw6"),
-    "k2_ntt_pass": tuple(f"k2_ntt_{f}_2e{k}_{op}" for f, k in (
-        ("bls12_381_fr", 18), ("pasta_fp", 15), ("pasta_fp", 12)) for op in NTT_OPS)[1:],
+    "k2_ntt_pass": tuple(f"k2_ntt_{f}_2e{k}_{op}" for f, k in NTT_SHAPES for op in NTT_OPS)[1:],
+    "k5b_ntt_pass": tuple(f"k5b_ntt_{f}_2e{k}_{op}" for f, k in NTT_SHAPES for op in NTT_OPS)[1:],
     "k3_sw_add": ("k3_vesta_2e12", "k3_vesta_2e16"),
     "k4_field_mul": ("k4_bw6",),
     "k5a_mont_mul_mma": ("k5a_bw6",),
@@ -1194,7 +1288,7 @@ def kernel_line(recs, launches):
             row.update(ms_n2e20=r["ms_n2e20"], bound_ms_n2e20=r["bound_ms_n2e20"])
         if name == "k3_sw_add":
             row.update(fold=recs["k3_fold"])
-        if name == "k2_ntt_pass":
+        if name in ("k2_ntt_pass", "k5b_ntt_pass"):
             row.update(old_ms=r["old_ms"], wall_ms=r["wall_ms"], plan=r["plan"])
             for m, rec in zip(MORE_SHAPES[name], row["more"]):
                 rec.update(old_ms=recs[m]["old_ms"], wall_ms=recs[m]["wall_ms"], plan=recs[m]["plan"])

@@ -12,6 +12,7 @@ hand-written CUDA kernels (csrc/):
   K4  csrc/k1_mont_mul.cu        row-major multiply entry     (ops/field_mul.py)
   K5a csrc/k5a_mont_mul_mma.cu   K1 on the int8 tensor cores  (ops/mont_mma.py)
   K5b csrc/k5b_butterfly_mma.cu  K2 on the int8 tensor cores  (ops/mont_mma.py)
+      csrc/k5b_ntt_mma.cu        k2_ntt.cu's passes, the same (ops/mont_mma.py ntt_pass_mma)
   K5c csrc/k5c_sw_add_mma.cu     K3 on the int8 tensor cores  (ops/curve_add.py)
 
 ZKCP_MXU=1 selects K5a-K5c in place of K1-K3, as it selects the

@@ -1,7 +1,8 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The kernels (csrc/k1_mont_mul.cu with K4's entry, k2_butterfly.cu,
-k2_ntt.cu, k3_sw_add.cu, k5a_mont_mul_mma.cu, k5b_butterfly_mma.cu, k5c_sw_add_mma.cu)
+k2_ntt.cu, k3_sw_add.cu, k5a_mont_mul_mma.cu, k5b_butterfly_mma.cu,
+k5b_ntt_mma.cu, k5c_sw_add_mma.cu)
 are compiled for `sm_90a`, one `nvcc` per source, all started together,
 and linked into one plain shared library with a C interface, loaded with
 ctypes.  The build happens at first use,
@@ -38,6 +39,7 @@ KERNELS = (
     "k4_field_mul",
     "k5a_mont_mul_mma",
     "k5b_butterfly_mma",
+    "k5b_ntt_pass",
     "k5c_sw_add_mma",
 )
 LAUNCHES: Counter = Counter()
@@ -142,6 +144,7 @@ def lib():
         so.k4_field_mul.argtypes = [vp, vp, vp, ll, i32, vp, u32, vp]
         so.k5a_mont_mul_mma.argtypes = [vp, vp, vp, ll, i32, vp, u32, vp, vp]
         so.k5b_butterfly_mma.argtypes = [vp, vp, vp, vp, vp, ll, i32, vp, u32, vp, vp]
+        so.k5b_ntt_pass.argtypes = [vp] * 5 + [i32, ll] + [i32] * 4 + [vp, u32, vp, vp]
         so.k5c_sw_add_mma.argtypes = [vp] * 9 + [ll, i32, vp, u32, vp, i32, i32, vp, vp]
         for name in KERNELS:
             getattr(so, name).restype = ctypes.c_int

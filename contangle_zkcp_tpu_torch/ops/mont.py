@@ -269,21 +269,26 @@ def ntt_stage(F, a, tw, s: int, bf):
     return torch.stack([hi.reshape(n // m, half, L), lo.reshape(n // m, half, L)], dim=1).reshape(n, L)
 
 
-def ntt_pass_plain(F, a, table, s0: int, t: int, pre=None, post=None, gather: bool = False):
+def ntt_pass_plain(F, a, table, s0: int, t: int, pre=None, post=None, gather: bool = False,
+                   mul=None, bf=None):
     """Plain torch version of one k2_ntt_pass launch: a * pre (pre indexed by
     source position), the bit-reversal gather, stages s0 .. s0+t-1 through
-    butterfly_plain, times post ((n, L/2) by position, or (1, L/2) for all)."""
+    butterfly_plain, times post ((n, L/2) by position, or (1, L/2) for all).
+    `mul` and `bf` replace mont_mul_plain and butterfly_plain (the
+    tensor-core pass's twin, ops/mont_mma.py ntt_pass_mma_plain)."""
+    mul = mul or mont_mul_plain
+    bf = bf or butterfly_plain
     n = a.shape[0]
     x = a
     if pre is not None:
-        x = mont_mul_plain(F, x, unpack_words(pre))
+        x = mul(F, x, unpack_words(pre))
     if gather:
         x = x.index_select(0, bit_reverse_perm(n, x.device))
     tw = unpack_words(table)
     for s in range(s0, s0 + t):
-        x = ntt_stage(F, x, tw, s, butterfly_plain)
+        x = ntt_stage(F, x, tw, s, bf)
     if post is not None:
-        x = mont_mul_plain(F, x, unpack_words(post))
+        x = mul(F, x, unpack_words(post))
     return x
 
 
@@ -297,12 +302,8 @@ def _check_words(F, w, rows, what, like):
         raise ValueError(f"{what}: must be contiguous (and 16-byte aligned on CUDA)")
 
 
-def ntt_pass(F, a, table, s0: int, t: int, pre=None, post=None, gather: bool = False):
-    """K2, redesigned: stages s0 .. s0+t-1 of the NTT in one launch of
-    k2_ntt_pass (csrc/k2_ntt.cu) for a CUDA array, `ntt_pass_plain` for a
-    CPU one.  a: (n, L) limbs, n a power of two; table: (n/2, L/2) packed
-    twiddle words; pre (n, L/2), post (n or 1, L/2) words; gather (s0 = 0
-    only) reads the input in bit-reversed order.  Returns a new array."""
+def check_pass(F, a, table, s0: int, t: int, pre=None, post=None, gather: bool = False):
+    """The operand checks of one NTT pass (K2's and K5b's); returns n."""
     n = check_operands(F, a)
     logn = n.bit_length() - 1
     if n < 2 or n & (n - 1):
@@ -314,10 +315,20 @@ def ntt_pass(F, a, table, s0: int, t: int, pre=None, post=None, gather: bool = F
         _check_words(F, pre, (n,), "pre", a)
     if post is not None:
         _check_words(F, post, (1, n), "post", a)
+    if a.is_cuda and F.L != 16:
+        raise ValueError(f"the NTT pass kernels are built for 16-limb fields only (L = {F.L})")
+    return n
+
+
+def ntt_pass(F, a, table, s0: int, t: int, pre=None, post=None, gather: bool = False):
+    """K2, redesigned: stages s0 .. s0+t-1 of the NTT in one launch of
+    k2_ntt_pass (csrc/k2_ntt.cu) for a CUDA array, `ntt_pass_plain` for a
+    CPU one.  a: (n, L) limbs, n a power of two; table: (n/2, L/2) packed
+    twiddle words; pre (n, L/2), post (n or 1, L/2) words; gather (s0 = 0
+    only) reads the input in bit-reversed order.  Returns a new array."""
+    n = check_pass(F, a, table, s0, t, pre, post, gather)
     if not a.is_cuda:
         return ntt_pass_plain(F, a, table, s0, t, pre, post, gather)
-    if F.L != 16:
-        raise ValueError(f"k2_ntt_pass is built for 16-limb fields only (L = {F.L})")
     p, n0 = _words(F)
     out = torch.empty_like(a)
     rc = cuda_lib.lib().k2_ntt_pass(  # the kernel's launcher picks its tile and threads

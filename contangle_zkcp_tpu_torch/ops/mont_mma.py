@@ -1,5 +1,6 @@
-"""K5a (Montgomery multiply) and K5b (NTT butterfly) on the int8 tensor
-cores: the configuration switch, the constant matrices, wrappers and twins.
+"""K5a (Montgomery multiply) and K5b (NTT butterfly, and several NTT stages
+a launch) on the int8 tensor cores: the configuration switch, the
+constant matrices, wrappers and twins.
 
 Port of the matrix-unit mode of `contangle_zkcp_tpu/ops/pallas_mont.py`
 (`MontMulLanes._kernel_mxu`, `_bf_kernel_mxu`; `_const_byte_planes`,
@@ -7,13 +8,15 @@ Port of the matrix-unit mode of `contangle_zkcp_tpu/ops/pallas_mont.py`
 multiply's three products, m = (T mod R) * N' mod R and m * p have a
 constant operand; each is a Toeplitz matrix of the constant's bytes
 applied to the byte planes of the variable operand.  The reference runs
-them on the TPU's matrix unit in float32; the kernels (csrc/k5_mma.cuh)
-run them as unsigned int8 tensor-core products with int32 sums.  Every
-column sum is below 4W * 255^2 < 2^22, so both are exact.
+them on the TPU's matrix unit in float32; the kernels (csrc/k5_mma.cuh,
+csrc/k5_mont.cuh) run them as unsigned int8 tensor-core products with
+int32 sums.  Every column sum is below 4W * 255^2 < 2^23, so both are
+exact.
 
 `ZKCP_MXU=1` selects this configuration, as in the reference: `mont_mul`,
 `butterfly` (ops/mont.py) and `sw_add` (ops/curve_add.py) read it on
-every call and route to K5a, K5b and K5c.  A K5 wrapper launches its
+every call and route to K5a, K5b and K5c, and the NTT (ops/ntt.py) runs
+its passes through `ntt_pass_mma` (K5b's k5b_ntt_pass).  A K5 wrapper launches its
 kernel for a CUDA tensor and raises if it cannot (it never falls back to
 K1-K3); it takes its twin only for a CPU tensor.  The twins are the
 reference's algorithm in torch: the Toeplitz products in the reference's
@@ -30,7 +33,7 @@ import torch
 
 from . import cuda_lib
 from .mont import _carry_rows, _product_rows, _sub_rows, _words, add_rows, check_operands
-from .mont import from_cols, sub_rows, to_cols
+from .mont import check_pass, from_cols, ntt_pass_plain, sub_rows, to_cols
 
 
 def use_mxu() -> bool:
@@ -113,6 +116,14 @@ def butterfly_mma_plain(F, u, v, tw):
     return from_cols(add_rows(uc, vw, p)), from_cols(sub_rows(uc, vw, p))
 
 
+def ntt_pass_mma_plain(F, a, table, s0: int, t: int, pre=None, post=None, gather: bool = False):
+    """The plain torch version of one k5b_ntt_pass launch: ops/mont.py
+    ntt_pass_plain with the stages through `butterfly_mma_plain` and the
+    scalings through `mont_mul_mma_plain`."""
+    return ntt_pass_plain(F, a, table, s0, t, pre, post, gather,
+                          mul=mont_mul_mma_plain, bf=butterfly_mma_plain)
+
+
 # ---------------------------------------------------- kernel fragments
 
 
@@ -161,27 +172,53 @@ def fragment_words(A: np.ndarray, KS: int) -> np.ndarray:
     return out
 
 
-def mma_fragments(F) -> np.ndarray:
+def hw_rows() -> np.ndarray:
+    """The output byte (within an m-tile) of each of the 16 A rows in
+    csrc/k5_mont.cuh's order: rows g and g + 8, which the C fragment gives
+    one lane, are bytes 2g and 2g + 1, one halfword."""
+    r = np.arange(16)
+    return np.where(r < 8, 2 * r, 2 * (r - 8) + 1)
+
+
+def mma_fragments(F, rows=None) -> np.ndarray:
     """The kernels' constant table: the fragments of the mod-R Toeplitz
     matrix of N' (4W output bytes) then of p (8W output bytes), both by
-    32 KS input bytes; flat int32."""
+    32 KS input bytes; flat int32.  `rows` orders the 16 rows of every
+    m-tile (natural order by default: K5c's table)."""
     W, KS, mt_np, mt_p = mma_shape(F.L)
     cols = 32 * KS
     a_np = toeplitz_natural(F.npinv_limbs, 16 * mt_np, cols)
     a_p = toeplitz_natural(F.p_limbs, 16 * mt_p, cols)
     a_np[:, 4 * W :] = 0  # input bytes past the element are padding
     a_p[:, 4 * W :] = 0
+    if rows is not None:
+        a_np, a_p = (a.reshape(-1, 16, cols)[:, rows].reshape(-1, cols) for a in (a_np, a_p))
     frags = np.concatenate([fragment_words(a_np, KS), fragment_words(a_p, KS)])
     return frags.reshape(-1).view(np.int32)
 
 
-def fragments(F, device):
-    """`mma_fragments(F)` as a tensor on `device`, cached on F."""
-    cache = F.__dict__.setdefault("_mma_frags", {})
+def mma_fragments_hw(F) -> np.ndarray:
+    """K5a's and K5b's table (csrc/k5_mont.cuh): `mma_fragments` with each
+    m-tile's rows in `hw_rows` order."""
+    return mma_fragments(F, hw_rows())
+
+
+def _cached_table(F, device, attr, make):
+    cache = F.__dict__.setdefault(attr, {})
     key = str(torch.device(device))
     if key not in cache:
-        cache[key] = torch.from_numpy(mma_fragments(F).copy()).to(device)
+        cache[key] = torch.from_numpy(make(F).copy()).to(device)
     return cache[key]
+
+
+def fragments(F, device):
+    """`mma_fragments(F)` as a tensor on `device`, cached on F."""
+    return _cached_table(F, device, "_mma_frags", mma_fragments)
+
+
+def fragments_hw(F, device):
+    """`mma_fragments_hw(F)` as a tensor on `device`, cached on F."""
+    return _cached_table(F, device, "_mma_frags_hw", mma_fragments_hw)
 
 
 # ------------------------------------------------------------- wrappers
@@ -198,7 +235,7 @@ def mont_mul_mma(F, a, b):
     p, n0 = _words(F)
     rc = cuda_lib.lib().k5a_mont_mul_mma(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), n, F.L // 2, p, n0,
-        fragments(F, a.device).data_ptr(), cuda_lib.stream_ptr(a),
+        fragments_hw(F, a.device).data_ptr(), cuda_lib.stream_ptr(a),
     )
     cuda_lib.LAUNCHES["k5a_mont_mul_mma"] += 1
     cuda_lib.check(rc, "k5a_mont_mul_mma")
@@ -217,8 +254,29 @@ def butterfly_mma(F, u, v, tw):
     p, n0 = _words(F)
     rc = cuda_lib.lib().k5b_butterfly_mma(
         u.data_ptr(), v.data_ptr(), tw.data_ptr(), hi.data_ptr(), lo.data_ptr(),
-        n, F.L // 2, p, n0, fragments(F, u.device).data_ptr(), cuda_lib.stream_ptr(u),
+        n, F.L // 2, p, n0, fragments_hw(F, u.device).data_ptr(), cuda_lib.stream_ptr(u),
     )
     cuda_lib.LAUNCHES["k5b_butterfly_mma"] += 1
     cuda_lib.check(rc, "k5b_butterfly_mma")
     return hi, lo
+
+
+def ntt_pass_mma(F, a, table, s0: int, t: int, pre=None, post=None, gather: bool = False):
+    """K5b, redesigned: stages s0 .. s0+t-1 of the NTT in one launch of
+    k5b_ntt_pass (csrc/k5b_ntt_mma.cu) for a CUDA array, its multiplies'
+    constant products on the tensor cores; `ntt_pass_mma_plain` for a CPU
+    one.  Operands as ops/mont.py ntt_pass.  Returns a new array."""
+    n = check_pass(F, a, table, s0, t, pre, post, gather)
+    if not a.is_cuda:
+        return ntt_pass_mma_plain(F, a, table, s0, t, pre, post, gather)
+    p, n0 = _words(F)
+    out = torch.empty_like(a)
+    rc = cuda_lib.lib().k5b_ntt_pass(  # the kernel's launcher picks its tile and warps
+        a.data_ptr(), out.data_ptr(), table.data_ptr(),
+        None if pre is None else pre.data_ptr(), None if post is None else post.data_ptr(),
+        int(post is not None and post.shape[0] == n), n, s0, t, int(gather),
+        F.L // 2, p, n0, fragments_hw(F, a.device).data_ptr(), cuda_lib.stream_ptr(a),
+    )
+    cuda_lib.LAUNCHES["k5b_ntt_pass"] += 1
+    cuda_lib.check(rc, "k5b_ntt_pass")
+    return out

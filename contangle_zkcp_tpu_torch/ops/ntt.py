@@ -6,11 +6,13 @@ Cooley-Tukey with an up-front bit-reversal gather, then log2(n) stages.
 The transform runs as the passes of `pass_plan(n)`: each pass is ONE call
 of `ops/mont.py ntt_pass` (kernel K2's k2_ntt_pass on the card, its twin
 on the CPU), which runs several stages with the array's tiles in shared
-memory.  The first pass gathers through the bit reversal and applies the
-coset powers of `coset_forward`; the last applies n^-1 (`inverse`) or
-n^-1 g^-i (`coset_inverse`).  Under `ZKCP_MXU=1` the transform keeps the
-stage loop, one `ops/mont.py butterfly` call (K5b) a stage, and its
-scalings are `F.mul` calls (K5a).
+memory; under `ZKCP_MXU=1`, of `ops/mont_mma.py ntt_pass_mma` (K5b's
+k5b_ntt_pass, the multiplies' constant products on the tensor cores).
+The first pass gathers through the bit reversal and applies the coset
+powers of `coset_forward`; the last applies n^-1 (`inverse`) or n^-1 g^-i
+(`coset_inverse`).  `NTT.stage_route` keeps the one-stage route (one
+`ops/mont.py butterfly` call a stage, the scalings as `F.mul`) as the
+yardstick the passes are timed and checked against.
 
 Twiddles: stage s (block m = 2^(s+1)) uses w_m^j = w^(j n/m), j < m/2 —
 a strided slice of ONE table of w^j, j < n/2, built on the device by
@@ -84,11 +86,12 @@ class NTT:
 
     def _passes(self, a, table, pre=None, post=None):
         """The plan's passes over (n, L) Montgomery limbs: the gather (and
-        pre) in the first, post in the last."""
+        pre) in the first, post in the last; K5b's passes under ZKCP_MXU=1."""
         x, last = a, len(self.plan) - 1
         dev = a.device
+        run = mont_mma.ntt_pass_mma if mont_mma.use_mxu() else ntt_pass
         for i, (s0, t) in enumerate(self.plan):
-            x = ntt_pass(
+            x = run(
                 self.F, x, table.to(dev), s0, t,
                 pre=pre.to(dev) if i == 0 and pre is not None else None,
                 post=post.to(dev) if i == last and post is not None else None,
@@ -106,8 +109,9 @@ class NTT:
         return a
 
     def stage_route(self, op: str, a, g: int | None = None):
-        """`op` as the stage loop with `F.mul` scalings: the ZKCP_MXU=1
-        route (K5b, K5a), and K2's one-stage route before the passes."""
+        """`op` as the stage loop with `F.mul` scalings: the one-stage route
+        the passes replaced (K2's, or K5b's and K5a's under ZKCP_MXU=1),
+        kept to time and check them against."""
         F = self.F
         if op == "coset_forward":
             a = F.mul(a, self._coset_scale(g).to(a.device))
@@ -134,8 +138,6 @@ class NTT:
         return table, pre, post
 
     def _run(self, op: str, a, g: int | None = None):
-        if mont_mma.use_mxu():
-            return self.stage_route(op, a, g)
         return self._passes(a, *self.pass_operands(op, g))
 
     def forward(self, a):

@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
-"""What nvcc made of the point-add kernels K3 and K5c and of K2's two
-entries: registers, spills and SASS instruction counts.
+"""What nvcc made of the point-add kernels K3 and K5c, of K2's two entries,
+of K5a and of K5b's NTT passes: registers, spills and SASS instruction
+counts.
 
     python3 scripts/kernel_sass.py [--root DIR] [--out FILE]
 
-Compiles `k3_sw_add.cu`, `k5c_sw_add_mma.cu`, `k2_butterfly.cu` and
-`k2_ntt.cu` of the port under DIR (default: this checkout; another tree,
-such as an older commit unpacked with `git archive`, compares designs) to
-cubins for sm_90a with `-Xptxas -v`, then disassembles them with
-`cuobjdump -sass`.  Prints, for each instance of `k3_kernel`,
-`k5c_kernel`, `k2_kernel` and `k2_ntt_kernel`: registers, stack and spill
+Compiles `k3_sw_add.cu`, `k5c_sw_add_mma.cu`, `k2_butterfly.cu`,
+`k2_ntt.cu`, `k5a_mont_mul_mma.cu` and `k5b_ntt_mma.cu` of the port under
+DIR (default: this checkout; another tree, such as an older commit
+unpacked with `git archive`, compares designs; a source the tree lacks is
+skipped) to cubins for sm_90a with `-Xptxas -v`, then disassembles them
+with `cuobjdump -sass`.  Prints, for each instance of `k3_kernel`,
+`k5c_kernel`, `k2_kernel`, `k2_ntt_kernel`, `k5a_kernel` and
+`k5b_ntt_kernel`: registers, stack and spill
 bytes, the number of SASS instructions and the most frequent opcodes
 (with their modifiers: IMAD.WIDE.U32, IADD3.X, ...).  The point adds and
 `k2_kernel` are straight-line code per point or butterfly (K5c: per point
 and lane of its loop), so the static count is the count per point or
 butterfly; `k2_ntt_kernel` loops over its stages, and its static count
 holds five inlined Montgomery products (one a butterfly, two each for the
-pre- and post-scales).  `--out` also writes the full
+pre- and post-scales); `k5a_kernel` is one multiply an element, and
+`k5b_ntt_kernel` holds three (a butterfly's and the two scalings').  `--out` also writes the full
 histograms as JSON.  Needs nvcc and cuobjdump (the CUDA toolkit); no GPU.
 """
 
@@ -33,8 +37,10 @@ import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = ("k3_sw_add.cu", "k5c_sw_add_mma.cu", "k2_butterfly.cu", "k2_ntt.cu")
-KERNEL = re.compile(r"(k3_kernel|k5c_kernel|k2_kernel|k2_ntt_kernel)ILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?")
+SOURCES = ("k3_sw_add.cu", "k5c_sw_add_mma.cu", "k2_butterfly.cu", "k2_ntt.cu",
+           "k5a_mont_mul_mma.cu", "k5b_ntt_mma.cu")
+KERNEL = re.compile(r"(k3_kernel|k5c_kernel|k2_kernel|k2_ntt_kernel|k5a_kernel|k5b_ntt_kernel)"
+                    r"ILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?")
 SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
 GROUPS = {  # opcode families reported apart, by prefix
     "IMAD": ("IMAD",),
@@ -123,7 +129,7 @@ def main() -> int:
     csrc = os.path.join(os.path.abspath(args.root), "contangle_zkcp_tpu_torch", "csrc")
     report = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for src in SOURCES:
+        for src in (s for s in SOURCES if os.path.exists(os.path.join(csrc, s))):
             cubin = os.path.join(tmp, src + ".cubin")
             res = subprocess.run(
                 [tool("nvcc"), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

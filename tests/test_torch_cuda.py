@@ -1,8 +1,9 @@
 """The port's CUDA kernels (K1-K3, K4, and the tensor-core K5a-K5c) against
 their plain torch twins on the card, at awkward sizes (empty, one element,
 odd counts, a ragged last warp) and through the wrappers' operand checks;
-K2's NTT passes (k2_ntt_pass) against their twins pass by pass, and whole
-transforms against the stage loop, from n = 2 to 2^15;
+K2's NTT passes (k2_ntt_pass) and K5b's (k5b_ntt_pass, ZKCP_MXU=1) against
+their twins pass by pass, and whole transforms against the stage loop and
+each other, from n = 2 to 2^15; K5a on edge values (0, 1, p - 1, p - 2);
 the multiplies and butterflies also at W = 24 (BW6-761 Fq), the point adds
 also over the Pasta curves (the strict arithmetic of csrc/fp_lazy.cuh).  Needs an NVIDIA Hopper GPU and nvcc; skips
 elsewhere.  Run on the card (this file imports no JAX, so the suite's
@@ -241,6 +242,73 @@ def test_k5a_equals_twin_and_k1(card, name, n):
     assert cuda_lib.LAUNCHES["k5a_mont_mul_mma"] == before + (1 if n else 0)
 
 
+@pytest.mark.parametrize("name", ["bls12_381_fr", "bls12_381_fq", "bw6_761_fq"])
+def test_k5a_edge_values_equal_twin_and_k1(card, name):
+    """Operands 0, 1, p - 1 and p - 2 half of the time (all their pairs
+    among them), else uniform: the redesigned multiply's carry chains at
+    their extremes."""
+    F = getattr(tfi, name)()
+    n = 5000
+    special = F.encode([0, 1, F.p - 1, F.p - 2], mont=False, device="cpu")
+    rng = np.random.default_rng(19)
+    ops = []
+    for k in range(2):
+        x = rand(F, n, 30 + k)
+        pick = torch.from_numpy(rng.integers(0, 8, size=n))
+        ops.append(torch.where((pick < 4)[:, None], special[pick.clamp(max=3)], x).contiguous())
+    a, b = ops
+    got = mont_mma.mont_mul_mma(F, a.to(card), b.to(card))
+    assert torch.equal(got.cpu(), mont_mma.mont_mul_mma_plain(F, a, b))
+    assert torch.equal(got, mont.mont_mul(F, a.to(card), b.to(card)))  # K1
+
+
+@pytest.mark.parametrize("n", [2, 4, 1024, 4096, 1 << 13, 1 << 15])
+@pytest.mark.parametrize("name,g", [("bls12_381_fr", 7), ("pasta_fp", 5)])
+def test_k5b_ntt_pass_equals_twin_k2_and_stage_loop(card, monkeypatch, name, g, n):
+    """ZKCP_MXU=1: each pass of each operation equal to ntt_pass_mma_plain
+    on the same input; the transform launching k5b_ntt_pass once a pass
+    (and no one-stage K5b), equal to its passes, to the stage loop through
+    K5b and K5a, and to K2's passes."""
+    F = getattr(tfi, name)()
+    ntt = NTT(F, n, device=card)
+    a = rand(F, n, 25).to(card)
+    for op in NTT_OPS:
+        args = (g,) if op.startswith("coset") else ()
+        k2 = getattr(ntt, op)(a, *args)
+        table, pre, post = ntt.pass_operands(op, g)
+        x, last = a, len(ntt.plan) - 1
+        for i, (s0, t) in enumerate(ntt.plan):
+            kw = dict(pre=pre if i == 0 else None, post=post if i == last else None, gather=i == 0)
+            got = mont_mma.ntt_pass_mma(F, x, table, s0, t, **kw)
+            assert torch.equal(got, mont_mma.ntt_pass_mma_plain(F, x, table, s0, t, **kw)), (op, s0, t)
+            x = got
+        monkeypatch.setenv("ZKCP_MXU", "1")
+        before = dict(cuda_lib.LAUNCHES)
+        res = getattr(ntt, op)(a, *args)
+        assert cuda_lib.LAUNCHES["k5b_ntt_pass"] == before.get("k5b_ntt_pass", 0) + len(ntt.plan)
+        assert cuda_lib.LAUNCHES["k5b_butterfly_mma"] == before.get("k5b_butterfly_mma", 0)
+        assert torch.equal(res, x) and torch.equal(res, k2)
+        assert torch.equal(res, ntt.stage_route(op, a, g))
+        monkeypatch.delenv("ZKCP_MXU")
+
+
+def test_k5b_ntt_pass_operand_checks(card):
+    """L != 16 and a pass of more stages than the tile holds raise on the
+    card; a CPU table with a card array raises."""
+    Fq = tfi.bls12_381_fq()
+    with pytest.raises(ValueError):
+        mont_mma.ntt_pass_mma(Fq, rand(Fq, 64, 26).to(card),
+                              torch.zeros(32, 12, dtype=torch.int32, device=card), 0, 6, gather=True)
+    Fr = tfi.bls12_381_fr()
+    ntt = NTT(Fr, 64, device="cpu")
+    x = rand(Fr, 64, 27).to(card)
+    with pytest.raises(ValueError):
+        mont_mma.ntt_pass_mma(Fr, x, ntt._tw_fwd_w, 0, 6, gather=True)  # table on the CPU
+    big = NTT(Fr, 1 << 13, device=card)  # 13 stages in one pass: above the 2^12 tile
+    with pytest.raises(RuntimeError):
+        mont_mma.ntt_pass_mma(Fr, rand(Fr, 1 << 13, 28).to(card), big._tw_fwd_w, 0, 13, gather=True)
+
+
 @pytest.mark.parametrize("n", [1, 33, 2048])
 @pytest.mark.parametrize("name", ["bls12_381_fr", "bw6_761_fq"])
 def test_k5b_equals_twin_and_k2(card, name, n):
@@ -272,8 +340,8 @@ def test_k5c_equals_twin_and_k3(card, curve, n):
 
 
 def test_mxu_switch_routes_to_k5(card, monkeypatch):
-    """ZKCP_MXU=1: Fp.mul, the NTT butterfly and G1 adds launch K5a-c and
-    none of K1-K3."""
+    """ZKCP_MXU=1: Fp.mul, the NTT and G1 adds launch K5a, K5b's passes and
+    K5c, and none of K1-K3 nor the one-stage K5b."""
     from contangle_zkcp_tpu_torch.ops.ntt import NTT
 
     monkeypatch.setenv("ZKCP_MXU", "1")
@@ -288,5 +356,6 @@ def test_mxu_switch_routes_to_k5(card, monkeypatch):
     P = dev.encode_points([ci.BLS12_381_G1.generator] * 4)
     dev.add(P, P)
     counts = dict(cuda_lib.LAUNCHES)
-    assert all(counts.get(k, 0) > 0 for k in ("k5a_mont_mul_mma", "k5b_butterfly_mma", "k5c_sw_add_mma"))
-    assert all(counts.get(k, 0) == 0 for k in ("k1_mont_mul", "k2_butterfly", "k2_ntt_pass", "k3_sw_add"))
+    assert all(counts.get(k, 0) > 0 for k in ("k5a_mont_mul_mma", "k5b_ntt_pass", "k5c_sw_add_mma"))
+    assert all(counts.get(k, 0) == 0 for k in ("k1_mont_mul", "k2_butterfly", "k2_ntt_pass", "k3_sw_add",
+                                                "k5b_butterfly_mma"))

@@ -4,9 +4,13 @@ point (ops/field_mul.py) on the CPU, exactly:
   * the twins' Toeplitz matrices equal the JAX package's
     `_toeplitz_cat(_const_byte_planes(...))`;
   * the K5a/K5b/K5c twins equal the K1/K2/K3 twins at n = 256;
-  * the kernels' fragment table and staging layout, replayed in numpy with
-    the PTX m16n8k32 fragment layout, give the constant products;
-  * ZKCP_MXU=1 routes Fp.mul, the NTT and G1 adds to the K5 twins;
+  * the kernels' fragment tables and staging layouts, replayed in numpy
+    with the PTX m16n8k32 fragment layout, give the constant products:
+    K5c's (csrc/k5c_sw_add_mma.cu, an m-tile of column sums at a time)
+    and csrc/k5_mont.cuh's halfword sums (K5a, K5b), with the latter's
+    carry chains replayed word by word;
+  * ZKCP_MXU=1 routes Fp.mul, the NTT (to the tensor-core passes) and G1
+    adds to the K5 twins;
   * K4's twin equals the JAX `PallasFieldOps.mul_reference` at n = 64.
 """
 
@@ -108,7 +112,8 @@ def _mma(frag, b0, b1):
 
 
 def _const_product(frags, tile0, MT, W, KS, x_words, add=None):
-    """csrc/k5_mma.cuh const_product for one warp of 32 elements."""
+    """One constant product as csrc/k5c_sw_add_mma.cu stages it
+    (group_tile, then the owner's fold), for one warp of 32 elements."""
     sB = np.zeros((32, 8 * KS), np.uint64)
     sB[:, :W] = x_words[:, :W]
     out = [[0] * (4 * MT) for _ in range(32)]
@@ -162,14 +167,120 @@ def test_kernel_fragments_give_constant_products(name):
     assert all(x % R == 0 for x in u_int)
 
 
+def _const_sums_hw(frags, tile0, MT, W, KS, x_words, add=None):
+    """csrc/k5_mont.cuh const_sums and fold_row for one warp of 32
+    elements: B fragments from the staged rows, the C fragment's rows g and
+    g + 8 added into one halfword sum by the lane, stored to the element's
+    row at slot 8 mt + g, then folded with fold_word's carries."""
+    sB = np.zeros((32, 8 * KS), np.uint64)
+    sB[:, :W] = x_words[:, :W]
+    sC = np.zeros((32, 8 * MT), np.int64)
+    for mt in range(MT):
+        for j in range(4):
+            acc = np.zeros((16, 8), np.int64)
+            for ks in range(KS):
+                if mont_mma.tile_used(mt, ks, W):
+                    b0 = [sB[8 * j + (lane >> 2), 8 * ks + (lane & 3)] for lane in range(32)]
+                    b1 = [sB[8 * j + (lane >> 2), 8 * ks + 4 + (lane & 3)] for lane in range(32)]
+                    acc += _mma(frags[tile0 + mt * KS + ks], b0, b1)
+            assert acc.max() < 1 << 23
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                for col in (2 * t, 2 * t + 1):
+                    sC[8 * j + col, 8 * mt + g] = acc[g, col] + (acc[g + 8, col] << 8)
+    assert sC.max() < 1 << 32
+    out, carry = [[0] * (4 * MT) for _ in range(32)], [0] * 32
+    for e in range(32):
+        for q in range(4 * MT):
+            s = int(sC[e, 2 * q]) + (int(sC[e, 2 * q + 1]) << 16) + carry[e]
+            s += 0 if add is None else int(add[e][q])
+            out[e][q], carry[e] = s & 0xFFFFFFFF, s >> 32
+            assert carry[e] < (1 << 17) + 3  # fold_word's bound
+    return out, carry
+
+
+@pytest.mark.parametrize("name", ["fr", "fq", "bw6"])
+def test_hw_fragments_give_constant_products(name):
+    """K5a's table (mma_fragments_hw: each m-tile's rows in hw_rows order)
+    through k5_mont.cuh's staging and fold gives m = (T mod R) N' mod R and
+    T + m p, for products of random and edge values (p - 1, p - 2)."""
+    F = tfi.bw6_761_fq() if name == "bw6" else FIELDS[name][1]()
+    W, KS, mt_np, mt_p = mont_mma.mma_shape(F.L)
+    frags = mont_mma.mma_fragments_hw(F).view(np.uint32).reshape(-1, 32, 4)
+    natural = mont_mma.mma_fragments(F).view(np.uint32).reshape(-1, 32, 4)
+    assert frags.shape == natural.shape and sorted(mont_mma.hw_rows()) == list(range(16))
+    R = 1 << (32 * W)
+    a = rand_ints(F.p, 28, 41)[:28] + [F.p - 1, F.p - 1, F.p - 2, 1]
+    b = rand_ints(F.p, 28, 42)[:28] + [F.p - 1, F.p - 2, F.p - 2, F.p - 1]
+    T = [x * y for x, y in zip(a, b)]
+
+    def words(vals, n):
+        return np.array([[(v >> (32 * i)) & 0xFFFFFFFF for i in range(n)] for v in vals], np.uint64)
+
+    m, _ = _const_sums_hw(frags, 0, mt_np, W, KS, words([t % R for t in T], W))
+    m_int = [sum(w << (32 * i) for i, w in enumerate(row)) for row in m]
+    npinv = (-pow(F.p, -1, R)) % R
+    assert m_int == [(t % R) * npinv % R for t in T]
+    u, top = _const_sums_hw(frags, mt_np * KS, mt_p, W, KS, np.array(m, np.uint64),
+                            add=[words([t], 2 * W)[0] for t in T])
+    u_int = [sum(w << (32 * i) for i, w in enumerate(row)) + (c << (64 * W)) for row, c in zip(u, top)]
+    assert u_int == [t + mi * F.p for t, mi in zip(T, m_int)]
+
+
+def _mul_wide_chains(a, b, W):
+    """csrc/k5_mont.cuh mul_wide, instruction by instruction, with the
+    carry flag: row 0 by mul.lo and one mad.hi chain, each later row by a
+    mad.lo chain closed by addc and a mad.hi chain one word up, whose last
+    madc.hi may not carry out (asserted)."""
+    M = 0xFFFFFFFF
+    T = [0] * (2 * W)
+    for j in range(W):
+        T[j] = (a[j] * b[0]) & M
+    cc = 0
+    for j in range(W):  # mad.hi.cc / madc.hi.cc / madc.hi into T[1..W]
+        s = T[j + 1] + ((a[j] * b[0]) >> 32) + cc
+        T[j + 1], cc = s & M, s >> 32
+    assert cc == 0
+    for i in range(1, W):
+        cc = 0
+        for j in range(W):
+            s = T[i + j] + ((a[j] * b[i]) & M) + cc
+            T[i + j], cc = s & M, s >> 32
+        T[i + W] = cc  # addc.u32 0, 0
+        cc = 0
+        for j in range(W):
+            s = T[i + j + 1] + ((a[j] * b[i]) >> 32) + cc
+            T[i + j + 1], cc = s & M, s >> 32
+        assert cc == 0, (i, "the last madc.hi carried out")
+    return T
+
+
+@pytest.mark.parametrize("W", [8, 12, 24])
+def test_mul_wide_carry_chains(W):
+    """The schoolbook's two carry chains a row give a*b for random words,
+    all-ones words and the fields' p - 1, and never carry out of the row."""
+    M = (1 << 32) - 1
+    rng = np.random.default_rng(W)
+    ps = {8: tfi.bls12_381_fr().p, 12: tfi.bls12_381_fq().p, 24: tfi.bw6_761_fq().p}
+    vals = [int.from_bytes(rng.bytes(4 * W), "little") for _ in range(6)]
+    vals += [(1 << (32 * W)) - 1, ps[W] - 1, 0, 1]
+    for x in vals:
+        for y in vals[::-1]:
+            a = [(x >> (32 * j)) & M for j in range(W)]
+            b = [(y >> (32 * j)) & M for j in range(W)]
+            T = _mul_wide_chains(a, b, W)
+            assert sum(w << (32 * k) for k, w in enumerate(T)) == x * y
+
+
 def test_mxu_switch_routes_to_k5_twins(monkeypatch):
     """Under ZKCP_MXU=1 the wrappers take the K5 twins (counted here with
-    spies), and the results stay K1-K3's."""
+    spies), the NTT its tensor-core passes' twin, and the results stay
+    K1-K3's."""
     from contangle_zkcp_tpu_torch.ops.ntt import NTT
 
     calls = []
     for mod, name in ((mont_mma, "mont_mul_mma_plain"), (mont_mma, "butterfly_mma_plain"),
-                      (curve_add, "rcb_add_mma_plain")):
+                      (mont_mma, "ntt_pass_mma_plain"), (curve_add, "rcb_add_mma_plain")):
         fn = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _n=name: calls.append(_n) or _fn(*a))
     F = tfi.bls12_381_fr()
@@ -183,7 +294,11 @@ def test_mxu_switch_routes_to_k5_twins(monkeypatch):
     G = ci.BLS12_381_G1.generator
     P = dev.encode_points([G])
     assert dev.decode_points(dev.add(P, P)) == [ci.BLS12_381_G1.add(G, G)]
-    assert {"mont_mul_mma_plain", "butterfly_mma_plain", "rcb_add_mma_plain"} <= set(calls)
+    assert {"mont_mul_mma_plain", "butterfly_mma_plain", "ntt_pass_mma_plain",
+            "rcb_add_mma_plain"} <= set(calls)
+    before = calls.count("ntt_pass_mma_plain")
+    ntt.forward(x)
+    assert calls.count("ntt_pass_mma_plain") == before + len(ntt.plan)
 
 
 @pytest.mark.parametrize("name", list(FIELDS))

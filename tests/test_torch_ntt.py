@@ -1,5 +1,6 @@
-"""Port ops/ntt.py (torch) against the JAX package's NTT, limb for limb.
-The K2 twin against the Pallas butterfly it replaces is in
+"""Port ops/ntt.py (torch) against the JAX package's NTT, limb for limb,
+in the default configuration and under ZKCP_MXU=1 (the tensor-core
+passes' twin).  The K2 twin against the Pallas butterfly it replaces is in
 tests/test_torch_pallas.py."""
 
 import functools
@@ -34,6 +35,19 @@ def test_ntt_matches_jax(n, op):
     want = np.asarray(getattr(jn, op)(ja, *args))
     got = getattr(tn, op)(ta, *args)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("op", ["forward", "inverse", "coset_forward", "coset_inverse"])
+def test_ntt_mxu_matches_jax(op, monkeypatch):
+    """ZKCP_MXU=1: the passes' twin (K5b's, the constant products as the
+    reference's Toeplitz matrix products) equal to the JAX NTT at n = 16."""
+    jF, tF, jn, tn = engines(16)
+    xs = rand_ints(jF.p, 13, seed=19)
+    ja, ta = jnp.asarray(jF.encode(xs)), tF.encode(xs, device="cpu")
+    args = (COSET_G,) if op.startswith("coset") else ()
+    want = np.asarray(getattr(jn, op)(ja, *args))
+    monkeypatch.setenv("ZKCP_MXU", "1")
+    np.testing.assert_array_equal(getattr(tn, op)(ta, *args).numpy(), want)
 
 
 @pytest.mark.parametrize("n", [8, 256])

@@ -1,9 +1,12 @@
-"""The port's NTT passes (ops/ntt.py pass_plan, ops/mont.py ntt_pass and
-its twin), torch only: the plan covers every stage once, a numpy replay of
-csrc/k2_ntt.cu's tile and butterfly index maps keeps every butterfly
-inside one block, and the passes' twins composed over forced plans equal
-the stage loop with its `F.mul` scalings, limb for limb.  The NTT against
-the JAX package is tests/test_torch_ntt.py; k2_ntt_pass on the card is
+"""The port's NTT passes (ops/ntt.py pass_plan, ops/mont.py ntt_pass,
+ops/mont_mma.py ntt_pass_mma and their twins), torch only: the plan covers
+every stage once, a numpy replay of csrc/ntt_tile.cuh's tile and butterfly
+index maps keeps every butterfly inside one block, a replay of
+csrc/k5b_ntt_mma.cu's rounds gives every multiply all 32 lanes of a warp
+and stores from live lanes only, and the passes' twins (K2's, and K5b's
+under ZKCP_MXU=1) composed over forced plans equal the stage loop with its
+`F.mul` scalings, limb for limb.  The NTT against the JAX package is
+tests/test_torch_ntt.py; the pass kernels on the card are
 tests/test_torch_cuda.py."""
 
 import functools
@@ -15,16 +18,20 @@ import pytest
 import torch
 
 from contangle_zkcp_tpu_torch.fields import instances as tfi
-from contangle_zkcp_tpu_torch.ops import mont
+from contangle_zkcp_tpu_torch.ops import mont, mont_mma
 from contangle_zkcp_tpu_torch.ops.ntt import NTT, PASS_BITS, pass_plan
 
 from tests.torch_port_util import one_torch_thread, rand_ints  # noqa: F401
 
 FIELDS = {"bls12_381_fr": (tfi.bls12_381_fr, 7), "pasta_fp": (tfi.pasta_fp, 5)}
 OPS = ("forward", "inverse", "coset_forward", "coset_inverse")
-KERNEL = pathlib.Path(mont.__file__).resolve().parent.parent / "csrc" / "k2_ntt.cu"
-# the launch limits, declared once in the kernel's source
-LIMITS = {k: int(v) for k, v in re.findall(r"constexpr int (NTT_\w+) = (\d+);", KERNEL.read_text())}
+CSRC = pathlib.Path(mont.__file__).resolve().parent.parent / "csrc"
+# the launch limits, declared once in the sources: the passes' shared
+# geometry, and the tensor-core pass's warps a block
+LIMITS = {k: int(v) for k, v in re.findall(r"constexpr int (NTT_\w+) = (\d+);",
+                                           (CSRC / "ntt_tile.cuh").read_text())}
+K5B_WARPS = int(re.search(r"constexpr int K5B_NTT_WARPS = (\d+);",
+                          (CSRC / "k5b_ntt_mma.cu").read_text()).group(1))
 
 
 def test_pass_plan_covers_every_stage_once():
@@ -48,15 +55,16 @@ def brev(i, logn):
 
 
 def pass_geometry(n, s0, t):
-    """csrc/k2_ntt.cu launch_k2_ntt's launch shape for one pass: (lg,
-    threads, blocks); a block takes 2^lg groups of 2^t elements."""
+    """csrc/ntt_tile.cuh ntt_geometry and csrc/k2_ntt.cu launch_k2_ntt's
+    launch shape for one pass: (lg, threads, blocks); a block takes 2^lg
+    groups of 2^t elements."""
     groups_log = n.bit_length() - 1 - t
     lg = min(max(0, LIMITS["NTT_MIN_BF_LOG"] + 1 - t), groups_log)
     return lg, min(LIMITS["NTT_THREADS"], 1 << (t + lg - 1)), n >> (t + lg)
 
 
 def replay_pass(n, s0, t):
-    """csrc/k2_ntt.cu's index maps for one pass, vectorized over blocks:
+    """csrc/ntt_tile.cuh's index maps for one pass, vectorized over blocks:
     checks the tiles and each stage's butterflies and twiddle indices."""
     logn = n.bit_length() - 1
     lg, threads, blocks = pass_geometry(n, s0, t)
@@ -98,6 +106,54 @@ def test_kernel_index_maps_keep_butterflies_in_one_tile(n):
             replay_pass(n, s0, min(t, logn - s0))
 
 
+def k5b_rounds(n, s0, t):
+    """csrc/k5b_ntt_mma.cu's launch and rounds for one pass: the warps of a
+    block (launch_k5b_ntt), and for each warp-uniform loop (the tile's
+    slots for the pre- and post-scales, a stage's butterflies) which lanes
+    run each multiply and which of them are live.  Returns (warps, {count:
+    [(warp, round base, lanes, live lanes)]})."""
+    lg, _, _ = pass_geometry(n, s0, t)
+    tile = 1 << (t + lg)
+    rounds = (tile // 2) // 32
+    warps = 1 if rounds < 1 else min(rounds, K5B_WARPS)
+    out = {}
+    for count in (tile, tile // 2):  # the scalings' loop, a stage's loop
+        runs = []
+        for warp in range(warps):
+            for base in range(32 * warp, count, 32 * warps):  # base: warp-uniform
+                lanes = base + np.arange(32)
+                runs.append((warp, base, lanes, lanes[lanes < count]))
+        out[count] = runs
+    return warps, out
+
+
+@pytest.mark.parametrize("n", [2, 4, 8, 1024, 1 << 12, 1 << 13, 1 << 14, 1 << 15, 1 << 18, 1 << 19])
+def test_k5b_rounds_give_every_multiply_a_whole_warp(n):
+    """Every multiply of k5b_ntt_pass runs on all 32 lanes of its warp (the
+    warp-collective mma.sync), each warp of the block takes part in the
+    same rounds at every size, every slot and butterfly is taken by
+    exactly one live lane, and the dead lanes (past the end) store
+    nothing: at n = 2 and 4 a single warp with 31 or 30 dead lanes."""
+    logn = n.bit_length() - 1
+    plans = [pass_plan(n)] + [[(s0, min(t, logn - s0)) for s0 in range(0, logn, t)]
+                              for t in (1, 2, 5) if n <= 1 << 12]
+    for plan in plans:
+        for s0, t in plan:
+            warps, loops = k5b_rounds(n, s0, t)
+            assert 1 <= warps <= K5B_WARPS
+            for count, runs in loops.items():
+                live = np.concatenate([lv for *_, lv in runs])
+                assert np.array_equal(np.sort(live), np.arange(count))  # each once
+                assert all(len(lanes) == 32 for _, _, lanes, _ in runs)
+                per_warp = np.bincount([w for w, *_ in runs], minlength=warps)
+                assert per_warp.max() - per_warp.min() <= 1 and per_warp.min() >= 1
+                for _, _, lanes, lv in runs:  # stores: exactly the live lanes
+                    assert np.array_equal(lanes[lanes < count], lv)
+    if n <= 4:
+        warps, loops = k5b_rounds(n, 0, logn)
+        assert warps == 1 and len(loops[n // 2]) == 1 and len(loops[n // 2][0][3]) == n // 2
+
+
 @functools.lru_cache(maxsize=None)
 def engine(name, n):
     return NTT(FIELDS[name][0](), n, device="cpu")
@@ -130,6 +186,46 @@ def test_forced_plans_equal_stage_loop(name, n):
             if n == 1024 and t < 5:
                 continue  # the same passes as at n <= 256, more of them
             assert torch.equal(forced_passes(ntt, op, a, g, t), want), (op, t)
+
+
+def forced_mma_passes(ntt, op, a, g, t):
+    """The tensor-core pass twins (ntt_pass_mma_plain) over a plan of t
+    stages each."""
+    logn = ntt.logn
+    table, pre, post = ntt.pass_operands(op, g)
+    plan = [(s0, min(t, logn - s0)) for s0 in range(0, logn, t)]
+    x = a
+    for i, (s0, tt) in enumerate(plan):
+        x = mont_mma.ntt_pass_mma(ntt.F, x, table, s0, tt, pre=pre if i == 0 else None,
+                                  post=post if i == len(plan) - 1 else None, gather=i == 0)
+    return x
+
+
+@pytest.mark.parametrize("n", [2, 8, 256])
+@pytest.mark.parametrize("name", sorted(FIELDS))
+def test_mxu_forced_plans_equal_stage_loop(name, n, monkeypatch):
+    """Under ZKCP_MXU=1 the transform takes the tensor-core passes' twin;
+    over forced plans it equals the stage loop through butterfly_mma_plain
+    with the scalings through K5a's twin (F.mul), and K2's passes."""
+    ntt = engine(name, n)
+    F, g = ntt.F, FIELDS[name][1]
+    a = F.encode(rand_ints(F.p, max(n - 3, 0), seed=n + 7)[:n], device="cpu")
+    logn = ntt.logn
+    calls = []
+    twin = mont_mma.ntt_pass_mma_plain
+    monkeypatch.setattr(mont_mma, "ntt_pass_mma_plain", lambda *a, **k: calls.append(1) or twin(*a, **k))
+    for op in OPS:
+        args = (g,) if op.startswith("coset") else ()
+        k2 = getattr(ntt, op)(a, *args)  # the default configuration: K2's passes
+        monkeypatch.setenv("ZKCP_MXU", "1")
+        want = ntt.stage_route(op, a, g)  # butterfly -> K5b's twin, F.mul -> K5a's twin
+        del calls[:]
+        assert torch.equal(getattr(ntt, op)(a, *args), want), op
+        assert len(calls) == len(ntt.plan), op
+        assert torch.equal(want, k2), op
+        for t in sorted({min(t, logn) for t in (1, 2, 5, logn)}):
+            assert torch.equal(forced_mma_passes(ntt, op, a, g, t), want), (op, t)
+        monkeypatch.delenv("ZKCP_MXU")
 
 
 def test_fused_scalings_equal_f_mul_route():
