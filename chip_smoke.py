@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
 
     python3 chip_smoke.py [--blocks N] [--sale-blocks N] [--plonk-rows N] [--seed S]
-                          [--kernels-only | --plonk-only] [--root DIR]
+                          [--kernels-only | --plonk-only | --msm-only] [--root DIR]
 
 Phases, one line each as it finishes:
   1. the device: name, torch and CUDA versions, nvidia-smi name and
@@ -24,16 +24,34 @@ Phases, one line each as it finishes:
      n = 2, 4, 1024), timed beside the one-stage route each replaced
      (k2_butterfly or k5b_butterfly_mma, with F.mul); with ptxas's
      registers and spills (`--kernels-only` stops here);
-  4. a 256-point G1 MSM on the card against the exact host sum;
-  5. a small reference: the toy Groth16 circuit of tests/test_groth16.py
+  4. the MSM engines on the card against the exact host sum msm_host:
+     the lockstep engine on a 256-point G1 MSM; BalancedMSM (a 64-lane
+     overflow pool, so segments, fold levels and merges run) and TreeMSM
+     in G1 and G2, signed and unsigned, over witness-like and uniform
+     scalars and duplicate points, P and -P pairs, identity inputs and zero
+     scalars;
+  5. the [msm] phase: the three engines ("lockstep", "balanced", "tree")
+     at the PoE's real shapes (the G1 H query, 262,143 points, with
+     witness-like and uniform scalars; the G2 B query, 202,506 points) on
+     the policy's window, each held to the exact host sum (whole and on a
+     4,096-point slice), in turns A B C C B A after a warm-up call, with
+     ms, launches, the balanced engine's trips and overflow lanes, the
+     tree's levels and peak memory (`--msm-only` runs phases 1, 2, 4 and
+     5 alone);
+  6. the [edwards] phase: 2^16 Jubjub points on the card through a 255-bit
+     scalar_mul_ints, add and double (curves/edwards.py, K1), every result
+     on the curve after to_affine, 64 of each equal to the host curve;
+  7. a small reference: the toy Groth16 circuit of tests/test_groth16.py
      proves to the JAX package's pinned golden bytes;
-  6. the Proof of Encryption in the default configuration: ZkEncryption
+  8. the Proof of Encryption in the default configuration: ZkEncryption
      at N blocks (default 49,152) — compile (setup), encrypt + prove,
      verify, decrypt, and a tampered input that must be rejected — with
      the kernels' launch counts on that path (K1, k2_ntt_pass, K3; no
-     k2_butterfly), then the same prove under ZKCP_MXU=1 with its
-     groth16.prove.ntt_h (K5a, k5b_ntt_pass, K5c; no k5b_butterfly_mma);
-  7. the whole sale under ZKCP_MXU=1 (the tensor-core configuration) at
+     k2_butterfly) and the balanced engine's trips (every MSM of n >= 2^16
+     runs on the engine the policy names), then the same prove under
+     ZKCP_MXU=1 with its groth16.prove.ntt_h (K5a, k5b_ntt_pass, K5c; no
+     k5b_butterfly_mma);
+  9. the whole sale under ZKCP_MXU=1 (the tensor-core configuration) at
      N blocks (default 65,536): compile the three circuits, seller step 0
      (PoE + SampleEntries proof), buyer step 0 (verify, with the device
      Poseidon Merkle root), step 1 (key encryption), step 2 (adaptor
@@ -44,16 +62,16 @@ Phases, one line each as it finishes:
      be paid, a tampered adaptor signature must be refused, and K5a,
      k5b_ntt_pass and K5c must launch while K1-K3 (k2_ntt_pass and
      k2_butterfly) and the one-stage k5b_butterfly_mma do not;
-  8. the PLONKish path held exactly to the CPU: the n = 128 ElGamal
+  10. the PLONKish path held exactly to the CPU: the n = 128 ElGamal
      circuit's key and proof (one blinding seed) on the card equal the
      same calls on the CPU (the kernels' twins), and an IPA(1024)
      opening with the device generator fold equals the host fold's;
-  9. the halo2-path PLONKish prover in the default configuration: the
+  11. the halo2-path PLONKish prover in the default configuration: the
      ElGamal circuit over Pallas at 4,096 rows (the reference's k = 12),
      setup (8,192 IPA generators), two proves, verify, a tampered
      instance refused, with K1, k2_ntt_pass and K3's launch counts (K3 on
      Vesta in the strict arithmetic).  `--plonk-only` runs phases 1, 2 and
-     9 alone, and `--root DIR` takes the port package from another
+     11 alone, and `--root DIR` takes the port package from another
      checkout (DIR/contangle_zkcp_tpu_torch): together they time the
      prover of two trees after the same preceding work.
 Prints the kernels' JSON line and the card's name and power limit, then
@@ -749,17 +767,26 @@ def check_ntt(recs, rng):
 
 # --------------------------------------------------------------------- msm
 def msm_check(seed: int) -> str:
-    """The card's MSM (the port's bucket program on K3) against the exact
-    host sum msm_host: G1, 256 points, scalars alternately uniform and 0/1
-    bits (the PoE witness's skew), unsigned and signed windows, the signed
-    run peeling its heavy buckets."""
+    """The card's MSM engines against the exact host sum msm_host.  The
+    lockstep engine (the port's bucket program on K3): G1, 256 points,
+    scalars alternately uniform and 0/1 bits (the PoE witness's skew),
+    unsigned and signed windows, the signed run peeling its heavy buckets.
+    BalancedMSM (a 64-lane overflow pool, so that segments, fold levels and
+    merges run) and TreeMSM: G1 and G2, signed and unsigned windows, over
+    witness-like scalars (half 0/1 bits), uniform scalars, and duplicate
+    points, P and -P pairs, identity inputs and zero scalars."""
     from contangle_zkcp_tpu_torch.curves import instances as ci
+    from contangle_zkcp_tpu_torch.curves.fq2_device import Fq2Device
     from contangle_zkcp_tpu_torch.curves.weierstrass import SWDevice
     from contangle_zkcp_tpu_torch.fields import instances as fi
+    from contangle_zkcp_tpu_torch.fields.bigint import ints_to_limbs
     from contangle_zkcp_tpu_torch.ops.msm import MSM, msm_host
+    from contangle_zkcp_tpu_torch.ops.msm_balanced import BalancedMSM
+    from contangle_zkcp_tpu_torch.ops.msm_tree import TreeMSM
 
-    C = ci.BLS12_381_G1
-    dev = SWDevice(fi.bls12_381_fq(), C, device="cuda")
+    C, R = ci.BLS12_381_G1, fi.BLS12_381_R
+    Fq = fi.bls12_381_fq()
+    dev = SWDevice(Fq, C, device="cuda")
     rng = np.random.default_rng(seed + 1)
     n = 256
     step = C.mul(int(rng.integers(2, 1 << 30)), C.generator)
@@ -768,7 +795,7 @@ def msm_check(seed: int) -> str:
         acc = C.add(acc, step)
         pts.append(acc)
     bits = rng.integers(0, 2, size=n)
-    sc = [int.from_bytes(rng.bytes(32), "little") % fi.BLS12_381_R if i % 2 else int(bits[i])
+    sc = [int.from_bytes(rng.bytes(32), "little") % R if i % 2 else int(bits[i])
           for i in range(n)]
     want = msm_host(C, pts, sc)
     P = dev.encode_points(pts)
@@ -778,7 +805,208 @@ def msm_check(seed: int) -> str:
             eng.HEAVY_CNT = 16
         if eng.run(P, sc) != want:
             raise AssertionError(f"MSM n={n} signed={signed}: card result != msm_host")
-    return f"n={n}, unsigned and signed (heavy peel) equal to msm_host"
+
+    class G2Host:  # msm_host's curve interface over the host G2 math
+        def __init__(self, d):
+            self.add, self.mul = d.host_add, d.host_mul
+
+    g2dev = SWDevice(Fq2Device(Fq), b=ci.BLS12_381_G2_B, device="cuda")
+    prng = random.Random(seed + 3)
+    runs = 0
+    for name, d, host, gen, m in (
+        ("g1", dev, C, C.generator, 160),
+        ("g2", g2dev, G2Host(g2dev), (ci.BLS12_381_G2_GX, ci.BLS12_381_G2_GY), 32),
+    ):
+        base = [host.mul(prng.randrange(1, R), gen) for _ in range(m)]
+        for kind in ("witness", "uniform", "adversarial"):
+            pts = list(base)
+            if kind == "uniform":
+                sc = [prng.randrange(R) for _ in range(m)]
+            else:
+                sc = [prng.randrange(R) if prng.random() < 0.5 else prng.randrange(2) for _ in range(m)]
+            if kind == "adversarial":
+                Q = pts[0]
+                negQ = (Q[0], (C.p - Q[1]) if name == "g1" else tuple((-c) % C.p for c in Q[1]))
+                pts[:6] = [Q, Q, Q, negQ, pts[4], pts[4]]
+                s0 = prng.randrange(R)
+                sc[:9] = [s0, s0, s0, s0, 7, 7, 5, 5, 0]
+                pts[6] = pts[7] = None  # identity inputs
+            live = [(p_, s_) for p_, s_ in zip(pts, sc) if p_ is not None]
+            want = msm_host(host, [p_ for p_, _ in live], [s_ for _, s_ in live])
+            P = d.encode_points(pts)
+            for signed in (False, True):
+                bal = BalancedMSM(d, 255, c=6, signed=signed, overflow_lanes=64)
+                sch = bal.schedule(ints_to_limbs(sc, 16))
+                if kind == "witness" and not (sch["nlev"] >= 1 and sch["merge_mask"].any()):
+                    raise AssertionError(f"BalancedMSM {name}: the overflow pool was not exercised")
+                for eng in (bal, TreeMSM(d, 255, c=6, signed=signed)):
+                    if eng.run(P, sc) != want:
+                        raise AssertionError(f"{type(eng).__name__} {name} {kind} signed={signed}: "
+                                             f"card result != msm_host")
+                    runs += 1
+    return (f"lockstep n={n}, unsigned and signed (heavy peel), and {runs} BalancedMSM (64 overflow "
+            f"lanes) and TreeMSM runs (G1 n=160, G2 n=32; witness-like, uniform, duplicates, P and -P, "
+            f"identities, zero scalars; signed and unsigned) equal to msm_host")
+
+
+ENGINES = ("lockstep", "balanced", "tree")
+# the PoE's proving MSMs at N = 49,152 blocks: the H query (d - 1 points,
+# d = 2^18) in G1 with witness-like and uniform scalars, and the B query
+# in G2 (one point per variable: 202,506)
+MSM_SHAPES = (("g1", 262143, "witness"), ("g1", 262143, "uniform"), ("g2", 202506, "witness"))
+
+
+def run_msm(seed: int):
+    """The three engines at the PoE's real shapes, on the policy's window
+    (c = 16 in G1, 12 in G2, signed digits).  The points are k_i G from the
+    card's fixed-base multiplier, so the exact answer is (sum s_i k_i) G,
+    one host multiply: it holds every run, and on a 4,096-point slice each
+    engine's warm-up call.  Then the engines run in turns A B C C B A in
+    this process; each run prints its ms, launches per kernel, the balanced
+    engine's trips T and overflow lanes, the tree's level count and the
+    peak device memory.  Returns (launches over the phase, seconds)."""
+    from contangle_zkcp_tpu_torch.curves import instances as ci
+    from contangle_zkcp_tpu_torch.curves.fq2_device import Fq2Device
+    from contangle_zkcp_tpu_torch.curves.weierstrass import SWDevice
+    from contangle_zkcp_tpu_torch.fields import instances as fi
+    from contangle_zkcp_tpu_torch.fields.bigint import ints_to_limbs
+    from contangle_zkcp_tpu_torch.ops import cuda_lib
+    from contangle_zkcp_tpu_torch.ops.fixed_base import FixedBaseDevice
+    from contangle_zkcp_tpu_torch.ops.msm import MSM
+    from contangle_zkcp_tpu_torch.ops.msm_balanced import BalancedMSM
+    from contangle_zkcp_tpu_torch.ops.msm_policy import msm_config
+    from contangle_zkcp_tpu_torch.ops.msm_tree import TreeMSM
+    from contangle_zkcp_tpu_torch.utils import metrics
+
+    C, R = ci.BLS12_381_G1, fi.BLS12_381_R
+    Fq = fi.bls12_381_fq()
+    devs = {"g1": (SWDevice(Fq, C, device="cuda"), C.generator),
+            "g2": (SWDevice(Fq2Device(Fq), b=ci.BLS12_381_G2_B, device="cuda"),
+                   (ci.BLS12_381_G2_GX, ci.BLS12_381_G2_GY))}
+    kinds = {"lockstep": MSM, "balanced": BalancedMSM, "tree": TreeMSM}
+    rng = random.Random(seed + 11)
+    t_phase = time.time()
+    cuda_lib.reset_launches()
+    table = {}
+    for group, n, kind in MSM_SHAPES:
+        dev, gen = devs[group]
+        ks = [rng.randrange(1, R) for _ in range(n)]
+        if kind == "uniform":
+            sc = [rng.randrange(R) for _ in range(n)]
+        else:  # the PoE witness's skew: half the scalars 0/1 bits
+            sc = [rng.randrange(R) if rng.random() < 0.5 else rng.randrange(2) for _ in range(n)]
+        t0 = time.time()
+        pts = FixedBaseDevice(dev, gen, R.bit_length(), chunk=1 << 16).mul_ints(ks)
+        limbs = ints_to_limbs(sc, 16)
+        want = dev.host_mul(sum(s * k for s, k in zip(sc, ks)) % R, gen)
+        cut = 4096
+        want_cut = dev.host_mul(sum(s * k for s, k in zip(sc[:cut], ks[:cut])) % R, gen)
+        torch.cuda.synchronize()
+        cfg = msm_config(group, n)
+        engines = {e: kinds[e](dev, 255, c=cfg.c, signed=cfg.signed) for e in ENGINES}
+        log(f"[msm] {group} n={n} {kind} scalars: points made on the card in {time.time() - t0:.2f} s; "
+            f"policy c={cfg.c} signed={cfg.signed} engine={cfg.engine}")
+        for e, eng in engines.items():  # warm-up: the 4,096-point slice
+            if eng.run({k: v[:cut] for k, v in pts.items()}, limbs[:cut]) != want_cut:
+                raise AssertionError(f"[msm] {e} {group} on the {cut}-point slice != the host sum")
+        rows = {e: [] for e in ENGINES}
+        for e in ENGINES + ENGINES[::-1]:
+            metrics.registry().reset()
+            before = dict(cuda_lib.LAUNCHES)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            got = engines[e].run(pts, limbs)
+            torch.cuda.synchronize()
+            ms = (time.time() - t0) * 1e3
+            if got != want:
+                raise AssertionError(f"[msm] {e} {group} n={n} {kind}: result != the host sum")
+            snap = metrics.registry().snapshot()
+            rows[e].append(dict(
+                ms=round(ms, 1),
+                launches={k: v - before.get(k, 0) for k, v in cuda_lib.LAUNCHES.items() if v - before.get(k, 0)},
+                timers_ms={k.split(".")[1]: round(v["total_sec"] * 1e3, 1) for k, v in sorted(snap["timers"].items())},
+                gauges={k.split(".")[1]: v for k, v in snap["gauges"].items()
+                        if k in ("msm.balanced_trips", "msm.balanced_overflow_lanes",
+                                 "msm.balanced_fold_levels", "msm.tree_levels", "msm.heavy_buckets")},
+                peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2)))
+        for e in ENGINES:
+            log(f"[msm] {group} n={n} {kind} {e}: ms {[r['ms'] for r in rows[e]]}; launches "
+                f"{json.dumps(rows[e][0]['launches'], sort_keys=True)}; {json.dumps(rows[e][0]['gauges'])}; "
+                f"timers (ms) {[r['timers_ms'] for r in rows[e]]}; peak {rows[e][0]['peak_gib']} GiB")
+        table[f"{group}_{n}_{kind}"] = {e: [r["ms"] for r in rows[e]] for e in ENGINES}
+        del pts
+        torch.cuda.empty_cache()
+    launches = dict(cuda_lib.LAUNCHES)
+    log(f"[msm] all three engines equal the host sum at every shape; ms in turns "
+        f"(lockstep, balanced, tree, tree, balanced, lockstep): {json.dumps(table)}")
+    log(f"[msm] launches over the phase: {json.dumps(launches, sort_keys=True)}")
+    for k in ("k1_mont_mul", "k3_sw_add"):
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the [msm] phase")
+    for k in MXU_KERNELS + OFF_PATH:
+        if launches.get(k, 0):
+            raise AssertionError(f"kernel {k} launched in the default configuration")
+    return launches, {"msm": time.time() - t_phase}
+
+
+def run_edwards(seed: int):
+    """The Jubjub device curve on the card: 2^16 points through a 255-bit
+    scalar_mul_ints of the generator, add and double; every result on the
+    curve after to_affine (checked on the card), and 64 of each equal to the
+    host EdwardsCurve.  Returns (launches over the phase, seconds)."""
+    from contangle_zkcp_tpu_torch.curves import instances as ci
+    from contangle_zkcp_tpu_torch.curves.edwards import EdwardsDevice
+    from contangle_zkcp_tpu_torch.fields import instances as fi
+    from contangle_zkcp_tpu_torch.ops import cuda_lib
+
+    J, F = ci.JUBJUB, fi.jubjub_fq()
+    n = 1 << 16
+    rng = random.Random(seed + 21)
+    ks = [rng.getrandbits(255) for _ in range(n)]
+    cuda_lib.reset_launches()
+    t_phase = time.time()
+    dev = EdwardsDevice(F, J, device="cuda")
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = round(time.time() - t0, 4)
+        return out
+
+    G = dev.encode_points([J.generator] * n)
+    A = timed("scalar_mul_ints", lambda: dev.scalar_mul_ints(G, ks, nbits=255))
+    rolled = {k: torch.roll(v, 1, 0) for k, v in A.items()}
+    B = timed("add", lambda: dev.add(A, rolled))
+    D = timed("double", lambda: dev.double(A))
+    a_m, d_m, one = F.encode(J.a, device="cuda"), F.encode(J.d, device="cuda"), F.one_mont((), device="cuda")
+    for name, P in (("scalar_mul_ints", A), ("add", B), ("double", D)):
+        x, y = timed(f"to_affine {name}", lambda: dev.to_affine(P))
+        xx, yy = F.mul(torch.stack([x, y]), torch.stack([x, y]))
+        lhs = F.add(F.mul(a_m, xx), yy)
+        rhs = F.add(one, F.mul(d_m, F.mul(xx, yy)))
+        if not bool(F.eq(lhs, rhs).all()):
+            raise AssertionError(f"[edwards] {name}: a point off the curve")
+    m = 64
+    host_a = [J.mul(k, J.generator) for k in ks[:m]]
+    sub = {k: v[:m] for k, v in A.items()}
+    if dev.decode_points(sub) != host_a:
+        raise AssertionError("[edwards] scalar_mul_ints != the host curve")
+    host_prev = [J.mul(ks[-1], J.generator)] + host_a[:-1]  # the rolled operand
+    if dev.decode_points({k: v[:m] for k, v in B.items()}) != [J.add(a, b) for a, b in zip(host_a, host_prev)]:
+        raise AssertionError("[edwards] add != the host curve")
+    if dev.decode_points({k: v[:m] for k, v in D.items()}) != [J.add(p, p) for p in host_a]:
+        raise AssertionError("[edwards] double != the host curve")
+    launches = dict(cuda_lib.LAUNCHES)
+    log(f"[edwards] n={n}: scalar_mul_ints (255 bits), add, double and to_affine on the card, every "
+        f"point on the curve, 64 of each equal to the host curve; s {json.dumps(times)}; launches "
+        f"{json.dumps(launches, sort_keys=True)}")
+    if launches.get("k1_mont_mul", 0) <= 0:
+        raise AssertionError("kernel k1_mont_mul was not launched by the [edwards] phase")
+    return launches, {"edwards": time.time() - t_phase}
 
 
 # ------------------------------------------------------------------ golden
@@ -815,6 +1043,17 @@ def toy_golden():
 
 
 # ------------------------------------------------------------------- slice
+def balanced_note() -> str:
+    """The balanced engine's runs and trips since the metrics were reset."""
+    from contangle_zkcp_tpu_torch.utils import metrics
+
+    snap = metrics.registry().snapshot()
+    c, g = snap["counters"], snap["gauges"]
+    return (f"BalancedMSM runs {int(c.get('msm.balanced_runs', 0))}, trips "
+            f"{int(c.get('msm.balanced_trips_total', 0))} in all (last run T="
+            f"{g.get('msm.balanced_trips')}, overflow lanes {g.get('msm.balanced_overflow_lanes')})")
+
+
 DEFAULT_KERNELS = ("k1_mont_mul", "k2_ntt_pass", "k3_sw_add")
 MXU_KERNELS = ("k5a_mont_mul_mma", "k5b_ntt_pass", "k5c_sw_add_mma")
 # the one-stage entries of K2 and K5b: launched by no path since the passes
@@ -864,7 +1103,7 @@ def run_slice(n_blocks: int, seed: int):
     per_prove = {k: cuda_lib.LAUNCHES[k] - before.get(k, 0) for k in cuda_lib.KERNELS}
     log(f"[slice] encrypt + prove: {times['encrypt_prove']:.3f} s, "
         f"ciphertext {len(cipher)} bytes, proof {len(proof)} bytes, "
-        f"launches {json.dumps(per_prove, sort_keys=True)}")
+        f"launches {json.dumps(per_prove, sort_keys=True)}; {balanced_note()}")
 
     t0 = time.time()
     ok = zk.verify_proof(proof, cipher)
@@ -920,7 +1159,7 @@ def run_slice(n_blocks: int, seed: int):
         delta = {k: v - before.get(k, 0) for k, v in cuda_lib.LAUNCHES.items() if v - before.get(k, 0)}
         log(f"[slice] encrypt + prove under ZKCP_MXU=1: {times['encrypt_prove_mxu']:.3f} s "
             f"(prove {prove:.3f} s, of which groth16.prove.ntt_h {ntt_h:.4f} s), verifies; "
-            f"launches {json.dumps(delta, sort_keys=True)}")
+            f"launches {json.dumps(delta, sort_keys=True)}; since the first prove: {balanced_note()}")
         for k in MXU_KERNELS:
             if not delta.get(k):
                 raise AssertionError(f"kernel {k} was not launched by the ZKCP_MXU=1 prove")
@@ -1108,7 +1347,7 @@ def run_sale(n_blocks: int, seed: int):
     snap = metrics.registry().snapshot()
     timers = {k: round(v["total_sec"], 4) for k, v in sorted(snap["timers"].items())
               if k.startswith(("groth16.", "seller.", "buyer."))}
-    log(f"[sale] timers (s): {json.dumps(timers)}")
+    log(f"[sale] timers (s): {json.dumps(timers)}; {balanced_note()}")
     return launches, times
 
 
@@ -1268,9 +1507,9 @@ MORE_SHAPES = {
 
 def kernel_line(recs, launches):
     """The {"kernels": [...]} records.  `launches` is the sum over the
-    driven paths (the PoE and the PLONKish prover in the default
-    configuration, the sale under ZKCP_MXU=1), `launches_by_path` each
-    path's own count (K4 is on none: reached only through its own entry
+    driven paths (the [msm] and [edwards] phases, the PoE and the PLONKish
+    prover in the default configuration, the sale under ZKCP_MXU=1),
+    `launches_by_path` each path's own count (K4 is on none: reached only through its own entry
     point, ops/field_mul.py); `more` holds the other shapes checked."""
     out = []
     for name, src, replaces, key, fq_key, shape in KERNEL_ROWS:
@@ -1311,6 +1550,8 @@ def main() -> int:
                     help="stop after the kernel checks (a quick run; prints no result line)")
     ap.add_argument("--plonk-only", action="store_true",
                     help="the build and the [plonk] phase alone (prints no result line)")
+    ap.add_argument("--msm-only", action="store_true",
+                    help="the build, the MSM checks and the [msm] phase alone (prints no result line)")
     ap.add_argument("--root", default=ROOT,
                     help="the checkout whose port package is driven (default: this script's)")
     args = ap.parse_args()
@@ -1341,8 +1582,10 @@ def main() -> int:
         run_plonk(args.plonk_rows, args.seed, own=os.path.samefile(args.root, ROOT))
         log(f"[done] plonk phase only: wall {time.time() - t_start:.1f} s")
         return 0
-    log(f"[bound] integer rate: {set_int_rate()}; int8 tensor rate {INT8_MMA_OPS_PER_S:.4g} op/s")
-    recs = check_kernels(args.seed)
+    recs = {}
+    if not args.msm_only:
+        log(f"[bound] integer rate: {set_int_rate()}; int8 tensor rate {INT8_MMA_OPS_PER_S:.4g} op/s")
+        recs = check_kernels(args.seed)
     if args.kernels_only:
         log(f"[done] kernel checks only: wall {time.time() - t_start:.1f} s")
         return 0
@@ -1350,13 +1593,18 @@ def main() -> int:
     t0 = time.time()
     note = msm_check(args.seed)
     log(f"[msm] {note}: {time.time() - t0:.2f} s")
+    launches, times = {}, {}
+    launches["msm"], times["msm"] = run_msm(args.seed)
+    if args.msm_only:
+        log(f"[done] msm phases only: wall {time.time() - t_start:.1f} s")
+        return 0
+    launches["edwards"], times["edwards"] = run_edwards(args.seed)
 
     t0 = time.time()
     toy_golden()
     log(f"[golden] toy Groth16 pk/vk/proof bytes equal the pinned golden, "
         f"proof verifies: {time.time() - t0:.2f} s")
 
-    launches, times = {}, {}
     launches["poe"], times["poe"] = run_slice(args.blocks, args.seed)
     launches["sale"], times["sale"] = run_sale(args.sale_blocks, args.seed)
 

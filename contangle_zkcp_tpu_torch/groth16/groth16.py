@@ -9,8 +9,10 @@ Work placement:
   * witness/matrix evaluation: host (native C++ engine, r1cs/native.py);
   * the seven domain-size NTTs for the H quotient: the card (`ops.ntt`,
     kernel K2 per stage, K1 for the pointwise products);
-  * the five proof MSMs (A, B in G1 and G2, H, L): the card (`ops.msm`,
-    kernel K3 for every G1 add, K1 under every G2 add);
+  * the five proof MSMs (A, B in G1 and G2, H, L): the card, on the
+    engine the policy names (`ops.msm_balanced` at proving scale,
+    `ops.msm` below 2^16 points; kernel K3 for every G1 add, K1 under
+    every G2 add);
   * CRS generation: the card's fixed-base multiplier (`ops.fixed_base`)
     for large circuits, host window tables for small ones;
   * verification: host pairing engine; the public-input MSM runs on the
@@ -72,17 +74,24 @@ class CurveCtx:
         return self._msm_for("g2", n)
 
     def _msm_for(self, group: str, n: int) -> MSM:
-        """Engine per (group, size): the window width and digit signing
-        of the tested policy table (ops/msm_policy.py).  The port has one
-        MSM engine; the policy's engine name picks among the JAX package's
-        engines, which all compute the same point."""
+        """Engine per (group, size) from the tested policy table
+        (ops/msm_policy.py): its window width, digit signing and engine
+        name — "lockstep" (ops/msm.py, small MSMs), "balanced"
+        (ops/msm_balanced.py, every MSM of n >= 2^16) or "tree"
+        (ops/msm_tree.py) — as the reference builds them."""
         from ..ops.msm_policy import msm_config
 
         cfg = msm_config(group, n, self.r.bit_length())
-        key = (group, cfg.c, cfg.signed)
+        key = (group, cfg.c, cfg.signed, cfg.engine)
         if key not in self._msm_cache:
             dev = self.g1_dev if group == "g1" else self.g2_dev
-            self._msm_cache[key] = MSM(
+            if cfg.engine == "tree":
+                from ..ops.msm_tree import TreeMSM as engine
+            elif cfg.engine == "balanced":
+                from ..ops.msm_balanced import BalancedMSM as engine
+            else:
+                engine = MSM
+            self._msm_cache[key] = engine(
                 dev, scalar_bits=self.r.bit_length(), c=cfg.c, signed=cfg.signed
             )
         return self._msm_cache[key]

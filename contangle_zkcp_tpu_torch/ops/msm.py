@@ -329,20 +329,26 @@ class MSM:
         return out
 
     # ---------------------------------------------------------------- run
-    def run(self, points, scalars):
-        """points: device batch (leading N) or list of affine tuples;
-        scalars: (N, L) canonical limbs (tensor or array) or host ints.
-        Returns the MSM as a host affine point (None for the identity)."""
-        dev = self.dev
+    def _inputs(self, points, scalars):
+        """(device point batch, (N, L) host limbs) from the accepted forms:
+        a batch or affine tuples; limbs (tensor or array) or host ints."""
         if isinstance(points, (list, tuple)):
-            points = dev.encode_points(list(points))
+            points = self.dev.encode_points(list(points))
         if isinstance(scalars, (list, tuple)):
             scalars = ints_to_limbs(scalars, -(-self.scalar_bits // LIMB_BITS))
         if isinstance(scalars, torch.Tensor):
             scalars = scalars.cpu().numpy()
         limbs = np.asarray(scalars)
+        assert points["x"].shape[0] == limbs.shape[0], (points["x"].shape, limbs.shape)
+        return points, limbs
+
+    def run(self, points, scalars):
+        """points: device batch (leading N) or list of affine tuples;
+        scalars: (N, L) canonical limbs (tensor or array) or host ints.
+        Returns the MSM as a host affine point (None for the identity)."""
+        dev = self.dev
+        points, limbs = self._inputs(points, scalars)
         n = limbs.shape[0]
-        assert points["x"].shape[0] == n, (points["x"].shape, n)
         with metrics.timer("msm.host_schedule"):
             order, start, cnt, sgn = self.schedule(limbs)
         with metrics.timer("msm.heavy_peel"):

@@ -12,6 +12,7 @@ import asyncio
 from dataclasses import dataclass
 
 from ..utils import metrics
+from ..utils import serialize as ser
 from ..circuits import elgamal
 from ..curves import instances as ci
 from ..utils.errors import ProtocolError
@@ -91,5 +92,9 @@ class Buyer:
         # (the keygen_derive byte-reinterpretation trick)
         sk_bytes = secp.scalar_to_bytes(recovered)
         decryption_key = self.key_encryption.decrypt(sk_bytes, self.encrypted_key)
+        # the key decryption's chunks_to_bytes drops trailing zero bytes, so
+        # a data key whose top byte is 0 (about one Jubjub scalar in 15)
+        # comes back short: give it back its little-endian width
+        decryption_key = decryption_key.ljust(ser.field_byte_len(ci.JUBJUB.order), b"\0")
         self.encrypted_key = None
         return self.data_encryption.decrypt(decryption_key, encrypted_data)

@@ -359,3 +359,67 @@ def test_mxu_switch_routes_to_k5(card, monkeypatch):
     assert all(counts.get(k, 0) > 0 for k in ("k5a_mont_mul_mma", "k5b_ntt_pass", "k5c_sw_add_mma"))
     assert all(counts.get(k, 0) == 0 for k in ("k1_mont_mul", "k2_butterfly", "k2_ntt_pass", "k3_sw_add",
                                                 "k5b_butterfly_mma"))
+
+
+@pytest.mark.parametrize("engine", ["balanced", "tree"])
+@pytest.mark.parametrize("group,signed,kind", [
+    ("g1", True, "skewed"), ("g1", False, "skewed"), ("g1", True, "adversarial"), ("g2", True, "skewed"),
+])
+def test_grid_engines_equal_msm_host(card, engine, group, signed, kind):
+    """BalancedMSM (a 64-lane overflow pool, so segments, fold levels and
+    merges run) and TreeMSM on the card against the exact host sum:
+    witness-like scalars, or duplicates, P and -P, identity inputs and a
+    zero scalar."""
+    import random
+
+    from contangle_zkcp_tpu_torch.curves.fq2_device import Fq2Device
+    from contangle_zkcp_tpu_torch.fields.bigint import ints_to_limbs
+    from contangle_zkcp_tpu_torch.ops.msm_balanced import BalancedMSM
+    from contangle_zkcp_tpu_torch.ops.msm_tree import TreeMSM
+
+    C, R = ci.BLS12_381_G1, tfi.BLS12_381_R
+    Fq = tfi.bls12_381_fq()
+    if group == "g1":
+        dev, gen = SWDevice(Fq, C, device=card), C.generator
+    else:
+        dev = SWDevice(Fq2Device(Fq), b=ci.BLS12_381_G2_B, device=card)
+        gen = (ci.BLS12_381_G2_GX, ci.BLS12_381_G2_GY)
+    rng = random.Random(31)
+    n = 96 if group == "g1" else 24
+    ks = [rng.randrange(1, R) for _ in range(n)]
+    sc = [rng.randrange(R) if i % 8 == 0 else rng.choice([0, 1, 1, 3]) for i in range(n)]
+    if kind == "adversarial":
+        ks[:6] = [ks[0], ks[0], ks[0], R - ks[0], ks[4], ks[4]]
+        sc[:6] = [sc[0], sc[0], sc[0], sc[0], 7, 7]
+        ks[6] = 0  # the identity
+        sc[8] = 0
+    pts = [dev.host_mul(k, gen) if k else None for k in ks]
+    want = dev.host_mul(sum(s * k for s, k in zip(sc, ks)) % R, gen)
+    if engine == "balanced":
+        eng = BalancedMSM(dev, 255, c=6, signed=signed, overflow_lanes=64)
+        assert eng.schedule(ints_to_limbs(sc, 16))["nlev"] >= 1
+    else:
+        eng = TreeMSM(dev, 255, c=6, signed=signed)
+    cuda_lib.reset_launches()
+    assert eng.run(dev.encode_points(pts), ints_to_limbs(sc, 16)) == want
+    add = "k3_sw_add" if group == "g1" else "k1_mont_mul"
+    assert cuda_lib.LAUNCHES[add] > 0
+
+
+def test_edwards_device_equals_host(card):
+    import random
+
+    from contangle_zkcp_tpu_torch.curves.edwards import EdwardsDevice
+
+    J = ci.JUBJUB
+    dev = EdwardsDevice(tfi.jubjub_fq(), J, device=card)
+    rng = random.Random(41)
+    ks = [rng.randrange(1, J.order) for _ in range(6)] + [0, 1]
+    pts = [J.mul(k, J.generator) for k in ks]
+    P = dev.encode_points(pts)
+    Q = dev.encode_points(pts[1:] + pts[:1])
+    cuda_lib.reset_launches()
+    assert dev.decode_points(dev.add(P, Q)) == [J.add(a, b) for a, b in zip(pts, pts[1:] + pts[:1])]
+    assert dev.decode_points(dev.double(P)) == [J.add(a, a) for a in pts]
+    assert dev.decode_points(dev.scalar_mul_ints(P, ks)) == [J.mul(k, p) for k, p in zip(ks, pts)]
+    assert cuda_lib.LAUNCHES["k1_mont_mul"] > 0

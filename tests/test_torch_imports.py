@@ -87,11 +87,22 @@ def test_port_covers_the_slice():
         "plonkish/convert.py",
         # K2 redesigned: several NTT stages a launch
         "csrc/k2_ntt.cu",
+        # the proving-scale MSM engines, the Jubjub device curve, the
+        # arkworks RNG
+        "ops/msm_policy.py",
+        "ops/msm_grid.py",
+        "ops/msm_balanced.py",
+        "ops/msm_tree.py",
+        "curves/edwards.py",
+        "conformance/__init__.py",
+        "conformance/chacha.py",
+        "conformance/ark_rng.py",
     ):
         assert (PORT / rel).exists(), rel
 
 
 def _entry_points():
+    from contangle_zkcp_tpu_torch.curves.edwards import EdwardsDevice
     from contangle_zkcp_tpu_torch.curves.weierstrass import SWDevice
     from contangle_zkcp_tpu_torch.fields.fp import Fp
     from contangle_zkcp_tpu_torch.groth16 import groth16, convert
@@ -130,6 +141,7 @@ def _entry_points():
         PlonkSystem.__init__,
         IPA.__init__,
         QuotientDevice.__init__,
+        EdwardsDevice.__init__,
     ]
 
 
@@ -149,7 +161,7 @@ def test_cli_device_defaults_to_cuda():
         assert cli.parser().parse_args(argv).device == "cuda", argv[0]
 
 
-@pytest.mark.parametrize("idx", range(23))
+@pytest.mark.parametrize("idx", range(24))
 def test_entry_points_default_to_cuda(idx):
     fn = _entry_points()[idx]
     assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__

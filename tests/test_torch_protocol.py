@@ -247,6 +247,26 @@ def test_sale_end_to_end(seller_side, buyer_side, tmp_path):
         assert keccak.keccak256(raw) == tx_hash
 
 
+def test_sale_with_a_data_key_whose_top_byte_is_zero(tmp_path, monkeypatch):
+    """The key decryption drops a data key's trailing zero bytes (the
+    shared chunks_to_bytes); the port's buyer gives the key back its width,
+    so a sale whose data key is below 2^248 still decrypts."""
+    keygen = tzk.ZkEncryption.keygen
+    made = []
+
+    def small_keygen(self, rng=None):
+        while True:
+            sk, pk = keygen(self, rng)
+            if sk >> 248 == 0:
+                made.append(sk)
+                return sk, pk
+
+    monkeypatch.setattr(tzk.ZkEncryption, "keygen", small_keygen)
+    data = b"secret dataset!!"
+    _sale("torch", "torch", tmp_path, data)
+    assert (tmp_path / "cache" / "decryption_key").read_bytes()[-1] == 0 and made
+
+
 def test_step3_rejects_bad_adaptor_sig(tmp_path):
     cfg = _compile("torch", tmp_path)
     chain = teth.MockChain()
