@@ -34,7 +34,8 @@ Phases, one line each as it finishes:
      at the PoE's real shapes (the G1 H query, 262,143 points, with
      witness-like and uniform scalars; the G2 B query, 202,506 points) on
      the policy's window, each held to the exact host sum (whole and on a
-     4,096-point slice), in turns A B C C B A after a warm-up call, with
+     4,096-point slice), in turns A B C B A after a warm-up call (the
+     tree engine, on no policy path, once), with
      ms, launches, the balanced engine's trips and overflow lanes, the
      tree's levels and peak memory (`--msm-only` runs phases 1, 2, 4 and
      5 alone);
@@ -51,7 +52,18 @@ Phases, one line each as it finishes:
      runs on the engine the policy names), then the same prove under
      ZKCP_MXU=1 with its groth16.prove.ntt_h (K5a, k5b_ntt_pass, K5c; no
      k5b_butterfly_mma);
-  9. the whole sale under ZKCP_MXU=1 (the tensor-core configuration) at
+  9. the [property] phase: the circom Proof of Property in the default
+     configuration at the same N blocks (one byte a block): the dummy
+     property circuit composed with the encryption circuit into one
+     Groth16 proof (ZkPropertyVerifier) — compile (the composed setup and
+     its key files), encrypt and prove a true property (something =
+     plaintext[0], challenge = something^2), verify, decrypt the message
+     byte for byte, a tampered ciphertext rejected and a false property
+     refused — with the composed system's size, _merge's seconds, the
+     prove's groth16.prove.* and msm.* timers, the balanced engine's trips,
+     the key files' sizes, peak memory and K1, k2_ntt_pass and K3's
+     launches (no k2_butterfly);
+  10. the whole sale under ZKCP_MXU=1 (the tensor-core configuration) at
      N blocks (default 65,536): compile the three circuits, seller step 0
      (PoE + SampleEntries proof), buyer step 0 (verify, with the device
      Poseidon Merkle root), step 1 (key encryption), step 2 (adaptor
@@ -62,16 +74,16 @@ Phases, one line each as it finishes:
      be paid, a tampered adaptor signature must be refused, and K5a,
      k5b_ntt_pass and K5c must launch while K1-K3 (k2_ntt_pass and
      k2_butterfly) and the one-stage k5b_butterfly_mma do not;
-  10. the PLONKish path held exactly to the CPU: the n = 128 ElGamal
+  11. the PLONKish path held exactly to the CPU: the n = 128 ElGamal
      circuit's key and proof (one blinding seed) on the card equal the
      same calls on the CPU (the kernels' twins), and an IPA(1024)
      opening with the device generator fold equals the host fold's;
-  11. the halo2-path PLONKish prover in the default configuration: the
+  12. the halo2-path PLONKish prover in the default configuration: the
      ElGamal circuit over Pallas at 4,096 rows (the reference's k = 12),
      setup (8,192 IPA generators), two proves, verify, a tampered
      instance refused, with K1, k2_ntt_pass and K3's launch counts (K3 on
      Vesta in the strict arithmetic).  `--plonk-only` runs phases 1, 2 and
-     11 alone, and `--root DIR` takes the port package from another
+     12 alone, and `--root DIR` takes the port package from another
      checkout (DIR/contangle_zkcp_tpu_torch): together they time the
      prover of two trees after the same preceding work.
 Prints the kernels' JSON line and the card's name and power limit, then
@@ -861,7 +873,7 @@ def run_msm(seed: int):
     (c = 16 in G1, 12 in G2, signed digits).  The points are k_i G from the
     card's fixed-base multiplier, so the exact answer is (sum s_i k_i) G,
     one host multiply: it holds every run, and on a 4,096-point slice each
-    engine's warm-up call.  Then the engines run in turns A B C C B A in
+    engine's warm-up call.  Then the engines run in turns A B C B A in
     this process; each run prints its ms, launches per kernel, the balanced
     engine's trips T and overflow lanes, the tree's level count and the
     peak device memory.  Returns (launches over the phase, seconds)."""
@@ -910,7 +922,7 @@ def run_msm(seed: int):
             if eng.run({k: v[:cut] for k, v in pts.items()}, limbs[:cut]) != want_cut:
                 raise AssertionError(f"[msm] {e} {group} on the {cut}-point slice != the host sum")
         rows = {e: [] for e in ENGINES}
-        for e in ENGINES + ENGINES[::-1]:
+        for e in ENGINES + ENGINES[-2::-1]:
             metrics.registry().reset()
             before = dict(cuda_lib.LAUNCHES)
             torch.cuda.synchronize()
@@ -939,7 +951,7 @@ def run_msm(seed: int):
         torch.cuda.empty_cache()
     launches = dict(cuda_lib.LAUNCHES)
     log(f"[msm] all three engines equal the host sum at every shape; ms in turns "
-        f"(lockstep, balanced, tree, tree, balanced, lockstep): {json.dumps(table)}")
+        f"(lockstep, balanced, tree, balanced, lockstep): {json.dumps(table)}")
     log(f"[msm] launches over the phase: {json.dumps(launches, sort_keys=True)}")
     for k in ("k1_mont_mul", "k3_sw_add"):
         if launches.get(k, 0) <= 0:
@@ -1168,6 +1180,111 @@ def run_slice(n_blocks: int, seed: int):
                 raise AssertionError(f"kernel {k} launched by the ZKCP_MXU=1 prove")
     finally:
         os.environ.pop("ZKCP_MXU", None)
+    shutil.rmtree(build_dir, ignore_errors=True)
+    return launches, times
+
+
+# ---------------------------------------------------------------- property
+def run_property(n_blocks: int, seed: int):
+    """The circom Proof of Property in the default configuration: the
+    dummy property circuit (something = plaintext[0], challenge =
+    something^2) composed with the encryption circuit at n_blocks one-byte
+    blocks into one Groth16 proof (zkcp/property.py), through its entry
+    points: compile, encrypt and prove a true property, verify, decrypt,
+    a tampered ciphertext and a false property refused.  Returns (launches
+    over the phase, seconds)."""
+    from contangle_zkcp_tpu_torch.ops import cuda_lib
+    from contangle_zkcp_tpu_torch.utils import metrics
+    from contangle_zkcp_tpu_torch.utils import serialize as ser
+    from contangle_zkcp_tpu_torch.utils.errors import ProofError
+    from contangle_zkcp_tpu_torch.circuits import elgamal
+    from contangle_zkcp_tpu_torch.zkcp import CircomParams, ZkEncryption, ZkPropertyVerifier
+
+    build_dir = os.path.join(ROOT, "contangle_zkcp_tpu_torch", "build", "chip_smoke_property")
+    shutil.rmtree(build_dir, ignore_errors=True)
+    rng = random.Random(seed + 31)
+    msg = np.random.default_rng(seed + 31).integers(1, 256, size=n_blocks, dtype=np.uint8).tobytes()
+    metrics.registry().reset()
+    cuda_lib.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+
+    def merge_s():
+        return metrics.registry().snapshot()["timers"].get("property.merge", {}).get("total_sec", 0.0)
+
+    t0 = time.time()
+    # no circom artifact at r1cs_path: the verifier takes the dummy circuit
+    pv = ZkPropertyVerifier(build_dir, CircomParams(r1cs_path=os.path.join(build_dir, "none.r1cs")),
+                            n_blocks, device="cuda")
+    pv.compile(rng)
+    torch.cuda.synchronize()
+    times["compile"] = time.time() - t0
+    gauges = metrics.registry().snapshot()["gauges"]
+    sizes = {f: os.path.getsize(os.path.join(build_dir, f)) for f in ("circuit.zkey", "verification.key")}
+    times["merge_compile"] = merge_s()
+    log(f"[property] compile (composed setup + key files) n={n_blocks}: {times['compile']:.3f} s; "
+        f"composed system: {int(gauges['property.constraints'])} constraints, "
+        f"{int(gauges['property.variables'])} variables, domain {pv.proving_key.domain}; "
+        f"_merge {times['merge_compile']:.3f} s; key files (bytes) {json.dumps(sizes)}")
+
+    sk, pk_pt = elgamal.keygen(pv.params, rng)
+    p = pv.params.curve.p
+    s = msg[0]
+    before = dict(cuda_lib.LAUNCHES)
+    metrics.registry().reset()
+    t0 = time.time()
+    cipher, pop = pv.assess_property_and_encrypt(msg, sk, pk_pt, {"something": s, "challenge": s * s % p}, rng)
+    torch.cuda.synchronize()
+    times["encrypt_prove"] = time.time() - t0
+    times["merge_prove"] = merge_s()
+    per_prove = {k: cuda_lib.LAUNCHES[k] - before.get(k, 0) for k in cuda_lib.KERNELS}
+    snap = metrics.registry().snapshot()
+    prove_timers = {k: round(v["total_sec"], 4) for k, v in sorted(snap["timers"].items())
+                    if k.startswith(("groth16.", "msm.", "property."))}
+    log(f"[property] encrypt + compose + prove: {times['encrypt_prove']:.3f} s (_merge "
+        f"{times['merge_prove']:.3f} s), ciphertext {len(cipher)} bytes, proof {len(pop.proof)} bytes, "
+        f"launches {json.dumps(per_prove, sort_keys=True)}; {balanced_note()}")
+    log(f"[property] prove timers (s): {json.dumps(prove_timers)}")
+
+    t0 = time.time()
+    if not pv.verify_proof(pop, cipher):
+        raise AssertionError("[property] verifier rejected the proof of a true property")
+    times["verify"] = time.time() - t0
+    log(f"[property] verify: accepted, {times['verify']:.3f} s")
+
+    t0 = time.time()
+    plain = ZkEncryption(os.path.join(build_dir, "decrypt"), params=pv.params, device="cuda").decrypt(
+        ser.fp_to_bytes(sk, pv.params.curve.order), cipher)
+    times["decrypt"] = time.time() - t0
+    if plain != msg:
+        raise AssertionError("[property] decrypted bytes differ from the message")
+    log(f"[property] decrypt: {len(plain)} bytes equal to the message, {times['decrypt']:.3f} s")
+
+    bad = bytearray(cipher)
+    bad[32 + 8] ^= 1  # low bit of the first ciphertext block
+    t0 = time.time()
+    if pv.verify_proof(pop, bytes(bad)):
+        raise AssertionError("[property] verifier accepted a tampered ciphertext")
+    log(f"[property] tampered ciphertext: rejected, {time.time() - t0:.3f} s")
+
+    t0 = time.time()
+    try:
+        pv.assess_property_and_encrypt(msg, sk, pk_pt, {"something": s, "challenge": (s * s + 1) % p}, rng)
+    except ProofError as e:
+        refusal = f"ProofError({e})"
+    else:
+        raise AssertionError("[property] a false property (challenge != something^2) gave a proof")
+    log(f"[property] false property: refused before any proof ({refusal}), {time.time() - t0:.3f} s")
+
+    launches = dict(cuda_lib.LAUNCHES)
+    log(f"[property] launches over the phase: {json.dumps(launches, sort_keys=True)}")
+    for k in DEFAULT_KERNELS:
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the [property] phase")
+    for k in MXU_KERNELS + OFF_PATH:
+        if launches.get(k, 0):
+            raise AssertionError(f"kernel {k} launched in the default configuration")
+    log(f"[property] peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     shutil.rmtree(build_dir, ignore_errors=True)
     return launches, times
 
@@ -1507,8 +1624,9 @@ MORE_SHAPES = {
 
 def kernel_line(recs, launches):
     """The {"kernels": [...]} records.  `launches` is the sum over the
-    driven paths (the [msm] and [edwards] phases, the PoE and the PLONKish
-    prover in the default configuration, the sale under ZKCP_MXU=1),
+    driven paths (the [msm] and [edwards] phases, the PoE, the Proof of
+    Property and the PLONKish prover in the default configuration, the
+    sale under ZKCP_MXU=1),
     `launches_by_path` each path's own count (K4 is on none: reached only through its own entry
     point, ops/field_mul.py); `more` holds the other shapes checked."""
     out = []
@@ -1606,6 +1724,7 @@ def main() -> int:
         f"proof verifies: {time.time() - t0:.2f} s")
 
     launches["poe"], times["poe"] = run_slice(args.blocks, args.seed)
+    launches["property"], times["property"] = run_property(args.blocks, args.seed)
     launches["sale"], times["sale"] = run_sale(args.sale_blocks, args.seed)
 
     t0 = time.time()

@@ -97,6 +97,14 @@ def test_port_covers_the_slice():
         "conformance/__init__.py",
         "conformance/chacha.py",
         "conformance/ark_rng.py",
+        # the circom Proof of Property
+        "circomx/__init__.py",
+        "circomx/r1cs_format.py",
+        "circomx/dummy.py",
+        "circomx/wasm.py",
+        "circomx/witness_calc.py",
+        "circomx/wrapper.py",
+        "zkcp/property.py",
     ):
         assert (PORT / rel).exists(), rel
 
@@ -112,6 +120,7 @@ def _entry_points():
     from contangle_zkcp_tpu_torch.plonkish.prover import PlonkSystem
     from contangle_zkcp_tpu_torch.plonkish.quotient_device import QuotientDevice
     from contangle_zkcp_tpu_torch.zkcp.buyer import Buyer
+    from contangle_zkcp_tpu_torch.zkcp.property import ZkPropertyVerifier
     from contangle_zkcp_tpu_torch.zkcp.sample_entries import ZkSampleEntries
     from contangle_zkcp_tpu_torch.zkcp.seller import Seller
     from contangle_zkcp_tpu_torch.zkcp.verifiable_encryption import ZkVerifiableEncryption
@@ -142,6 +151,7 @@ def _entry_points():
         IPA.__init__,
         QuotientDevice.__init__,
         EdwardsDevice.__init__,
+        ZkPropertyVerifier.__init__,
     ]
 
 
@@ -161,7 +171,7 @@ def test_cli_device_defaults_to_cuda():
         assert cli.parser().parse_args(argv).device == "cuda", argv[0]
 
 
-@pytest.mark.parametrize("idx", range(24))
+@pytest.mark.parametrize("idx", range(25))
 def test_entry_points_default_to_cuda(idx):
     fn = _entry_points()[idx]
     assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
