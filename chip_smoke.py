@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--blocks N] [--sale-blocks N] [--plonk-rows N] [--seed S]
-                          [--kernels-only | --plonk-only | --msm-only] [--root DIR]
+    python3 chip_smoke.py [--blocks N] [--sale-blocks N] [--plonk-rows N] [--fold-blocks N]
+                          [--seed S] [--kernels-only | --plonk-only | --msm-only | --fold-only]
+                          [--root DIR]
 
 Phases, one line each as it finishes:
   1. the device: name, torch and CUDA versions, nvidia-smi name and
@@ -34,11 +35,11 @@ Phases, one line each as it finishes:
      at the PoE's real shapes (the G1 H query, 262,143 points, with
      witness-like and uniform scalars; the G2 B query, 202,506 points) on
      the policy's window, each held to the exact host sum (whole and on a
-     4,096-point slice), in turns A B C B A after a warm-up call (the
-     tree engine, on no policy path, once), with
-     ms, launches, the balanced engine's trips and overflow lanes, the
-     tree's levels and peak memory (`--msm-only` runs phases 1, 2, 4 and
-     5 alone);
+     4,096-point slice), lockstep and balanced in turns A B B A after a
+     warm-up call of each engine on the slice (the tree engine, on no
+     policy path, only there), with ms, launches, the balanced engine's
+     trips and overflow lanes and peak memory (`--msm-only` runs phases
+     1, 2, 4 and 5 alone);
   6. the [edwards] phase: 2^16 Jubjub points on the card through a 255-bit
      scalar_mul_ints, add and double (curves/edwards.py, K1), every result
      on the curve after to_affine, 64 of each equal to the host curve;
@@ -63,7 +64,20 @@ Phases, one line each as it finishes:
      prove's groth16.prove.* and msm.* timers, the balanced engine's trips,
      the key files' sizes, peak memory and K1, k2_ntt_pass and K3's
      launches (no k2_butterfly);
-  10. the whole sale under ZKCP_MXU=1 (the tensor-core configuration) at
+  10. the [fold] phase: the folding accumulator and its decider in the
+     default configuration (groth16/folding.py, decider.py, ipa_vec.py):
+     four satisfied PoE-shaped instances of --fold-blocks blocks (default
+     1,024: 1,027 constraints, 2,053 variables, commitments of 1,028 and
+     1,027 entries, all on the device MSM), the bases (hashing on the host,
+     cofactor clearing on the card), lifting, three folds as a tree, the
+     accumulator's check, the decider's bases (padded to 2,048), prove,
+     verify and two tampered cases rejected (va + 1, u + 1); every device
+     commitment and the first round of both openings held to msm_host in
+     host worker processes, 64 device-cleared bases to the host; seconds a
+     step, opening rounds, K1 and K3 launches (K3 required; no K5 or
+     k2_butterfly), peak memory (`--fold-only` runs phases 1, 2 and this
+     one alone);
+  11. the whole sale under ZKCP_MXU=1 (the tensor-core configuration) at
      N blocks (default 65,536): compile the three circuits, seller step 0
      (PoE + SampleEntries proof), buyer step 0 (verify, with the device
      Poseidon Merkle root), step 1 (key encryption), step 2 (adaptor
@@ -74,16 +88,16 @@ Phases, one line each as it finishes:
      be paid, a tampered adaptor signature must be refused, and K5a,
      k5b_ntt_pass and K5c must launch while K1-K3 (k2_ntt_pass and
      k2_butterfly) and the one-stage k5b_butterfly_mma do not;
-  11. the PLONKish path held exactly to the CPU: the n = 128 ElGamal
+  12. the PLONKish path held exactly to the CPU: the n = 128 ElGamal
      circuit's key and proof (one blinding seed) on the card equal the
      same calls on the CPU (the kernels' twins), and an IPA(1024)
      opening with the device generator fold equals the host fold's;
-  12. the halo2-path PLONKish prover in the default configuration: the
+  13. the halo2-path PLONKish prover in the default configuration: the
      ElGamal circuit over Pallas at 4,096 rows (the reference's k = 12),
      setup (8,192 IPA generators), two proves, verify, a tampered
      instance refused, with K1, k2_ntt_pass and K3's launch counts (K3 on
      Vesta in the strict arithmetic).  `--plonk-only` runs phases 1, 2 and
-     12 alone, and `--root DIR` takes the port package from another
+     13 alone, and `--root DIR` takes the port package from another
      checkout (DIR/contangle_zkcp_tpu_torch): together they time the
      prover of two trees after the same preceding work.
 Prints the kernels' JSON line and the card's name and power limit, then
@@ -109,23 +123,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published device memory bandwidth (NVIDIA data sheet, 700 W).
-# The kernels are 32-bit integer carry chains; the data sheet gives no
-# integer rate, so the operations bound uses the integer pipe's issue rate
-# on compute capability 9.0 -- 64 32-bit integer multiply-add (or add)
-# results per clock per SM (CUDA C++ Programming Guide, arithmetic
-# instruction throughput) -- times the card's SMs and maximum SM clock,
-# both read at run time.  A 32x32->64-bit multiply-add is two such
-# instructions (low and high halves); only the multiply-adds and the
-# word-wise add/subtract chains are counted, so the bound stays a floor.
-# The K5 kernels' constant products run on the int8 tensor cores, whose
-# published dense rate (H100 SXM data sheet, 700 W) bounds them apart from
-# the integer instructions left on the integer pipe.
-PEAK_BYTES_PER_S = 3.35e12
-INT8_MMA_OPS_PER_S = 1.979e15
-MMA_OPS = 2 * 16 * 8 * 32  # one mma.sync.m16n8k32: 4096 multiply-adds
-INT_OPS_PER_CLOCK_PER_SM = 64
-PEAK_OPS_PER_S = None  # set by set_int_rate() from the card
+# The kernels' work counts (bytes, integer and tensor-core operations),
+# the H100's peak rates and `bound` live in the port's utils/profiling.py;
+# each phase imports them after main() has put the package on the path.
 
 
 def log(msg: str) -> None:
@@ -185,117 +185,11 @@ def random_field(F, n: int, rng):
     return torch.from_numpy(arr.astype(np.int32)).cuda()
 
 
-def set_int_rate() -> str:
-    """PEAK_OPS_PER_S = SMs x 64 per clock x max SM clock; returns a note."""
-    global PEAK_OPS_PER_S
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    src = "nvidia-smi clocks.max.sm"
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-            capture_output=True, text=True, timeout=30,
-        )
-        mhz = float(out.stdout.split()[0])
-    except (OSError, subprocess.TimeoutExpired, ValueError, IndexError):
-        mhz, src = 1980.0, "H100 SXM data-sheet boost clock (nvidia-smi gave none)"
-    PEAK_OPS_PER_S = sms * INT_OPS_PER_CLOCK_PER_SM * mhz * 1e6
-    return (f"{sms} SMs x {INT_OPS_PER_CLOCK_PER_SM}/clock x {mhz:.0f} MHz ({src}) "
-            f"= {PEAK_OPS_PER_S:.4g} int32 op/s")
-
-
-def bound(nbytes: float, ops: float, mma_ops: float = 0.0):
-    """Least time in ms: bytes at the memory rate, integer instructions at
-    the integer rate, tensor-core operations at the int8 rate."""
-    tb = nbytes / PEAK_BYTES_PER_S
-    to = max(ops / PEAK_OPS_PER_S, mma_ops / INT8_MMA_OPS_PER_S)
-    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
-
-
 def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
 # ------------------------------------------------------------ kernel checks
-def madds(F):
-    """32x32->64-bit multiply-adds of one CIOS Montgomery product (K1)."""
-    w = F.L // 2
-    return 2 * w * w + w
-
-
-def mma_int_ops(F):
-    """Integer instructions left to a K5 Montgomery product: the a*b
-    schoolbook (W^2 multiply-adds, two instructions each), the fold of 3W
-    output words and the final subtract (one per word)."""
-    w = F.L // 2
-    return 2 * w * w + 4 * w
-
-
-def mma_ops_per_elem(F):
-    """Tensor-core operations of one K5 Montgomery product: the mma.sync
-    issued per 8 elements (structurally zero tiles skipped, as
-    csrc/k5_mma.cuh tile_used does), over 8."""
-    from contangle_zkcp_tpu_torch.ops import mont_mma
-
-    w, ks, mt_np, mt_p = mont_mma.mma_shape(F.L)
-    tiles = sum(mont_mma.tile_used(mt, k, w) for mt in range(mt_np) for k in range(ks))
-    tiles += sum(mont_mma.tile_used(mt, k, w) for mt in range(mt_p) for k in range(ks))
-    return tiles * MMA_OPS / 8
-
-
-def k2_ntt_int_ops(F, n: int, scaled: bool):
-    """Integer instructions of one n-point transform through k2_ntt_pass:
-    (n/2) log2 n butterflies of 2 madds + 4W (a Montgomery product, two
-    instructions a multiply-add, and the add and subtract chains of 2W
-    each; chip_smoke's K2 count), plus n Montgomery products when a pre-
-    or post-scale is fused."""
-    w = F.L // 2
-    logn = n.bit_length() - 1
-    return (n // 2) * logn * (2 * madds(F) + 4 * w) + (n * 2 * madds(F) if scaled else 0)
-
-
-def k3_int_ops(F):
-    """Integer instructions of one K3 point add as csrc/fp_lazy.cuh and
-    k3_sw_add.cu issue them (selects and masks not counted, so a floor):
-    10 multiplies of 4W^2 + 5W - 2 (row 0: 2W products + a reduction of
-    2W + 2; rows 1..W-1: 4W + 4; the final shift W), 6 sums of canonical
-    inputs (W each), 16 lazy adds and 5 lazy subtracts (2W each: the
-    chain and its correction) and 3 canonicalisations (W): 40W^2 + 101W
-    - 20, 6,952 for W = 12."""
-    w = F.L // 2
-    return 10 * (4 * w * w + 5 * w - 2) + 6 * w + 21 * 2 * w + 3 * w
-
-
-def k5c_int_ops(F):
-    """Integer instructions of one K5c point add (csrc/k5c_sw_add_mma.cu):
-    10 a*b schoolbooks of 2W^2 + 2W - 1 and folds of 3W words (m: W, m p:
-    2W; one each, as mma_int_ops), and the adds of k3_int_ops: 20W^2 +
-    101W - 10, 4,082 for W = 12."""
-    w = F.L // 2
-    return 10 * (2 * w * w + 5 * w - 1) + 6 * w + 21 * 2 * w + 3 * w
-
-
-def k3_strict_int_ops(F):
-    """Integer instructions of one K3 point add in the strict arithmetic
-    (csrc/fp_lazy.cuh S = true, mont.cuh's operations), counted as
-    k3_int_ops counts: 12 multiplies (3b = 15 takes the general multiply
-    twice) of 4W^2 + 5W (the two W^2 multiply-add rows, each row's top
-    words and m, the final subtract and select), and 19 modular adds and
-    subtracts of 3W (the chain, the correction chain, the select):
-    48W^2 + 117W, 4,008 for W = 8 (the lazy count's formula gives 3,348
-    there)."""
-    w = F.L // 2
-    return 12 * (4 * w * w + 5 * w) + 19 * 3 * w
-
-
-def k5c_strict_int_ops(F):
-    """K5c's integer instructions in the strict arithmetic: 12 a*b
-    schoolbooks and folds (as k5c_int_ops), a conditional subtract of p
-    after each (2W), and the 19 modular adds and subtracts of
-    k3_strict_int_ops."""
-    w = F.L // 2
-    return 12 * (2 * w * w + 5 * w - 1) + 12 * 2 * w + 19 * 3 * w
-
-
 def ptxas_summary() -> str:
     """Registers and spills of the point-add kernels (every instance), of
     the W = 24 instances of K1, K2 and the one-stage K5b, of every K5a
@@ -418,6 +312,8 @@ def check(name, got, want, what):
 
 def measure(recs, key, label, fn, plain, reps, preps, nbytes, ops, mma_ops=0.0, **extra):
     """Kernel time from CUDA-graph replays, the twin's from direct calls."""
+    from contangle_zkcp_tpu_torch.utils.profiling import bound
+
     ms = cuda_ms(fn, reps, graph=True)
     pms = cuda_ms(plain, preps)
     bms, by = bound(nbytes, ops, mma_ops)
@@ -431,6 +327,7 @@ def check_kernels(seed: int):
     from contangle_zkcp_tpu_torch.curves.weierstrass import SWDevice
     from contangle_zkcp_tpu_torch.fields import instances as fi
     from contangle_zkcp_tpu_torch.ops import curve_add, field_mul, mont, mont_mma
+    from contangle_zkcp_tpu_torch.utils.profiling import bound, counts
 
     rng = np.random.default_rng(seed)
     recs = {}
@@ -439,39 +336,37 @@ def check_kernels(seed: int):
         a, b = random_field(F, n, rng), random_field(F, n, rng)
         k1 = mont.mont_mul(F, a, b)
         err = check("K1", k1, mont.mont_mul_plain(F, a, b), "twin")
-        nbytes = 3 * n * F.L * 4
         measure(recs, f"k1_{F.name}", f"K1 k1_mont_mul {F.name} n={n}",
                 lambda: mont.mont_mul(F, a, b), lambda: mont.mont_mul_plain(F, a, b), 100, 1,
-                nbytes, 2 * n * madds(F), err=err)
+                *counts("k1_mont_mul", F, n), err=err)
         eng = field_mul.make(F)
         k4 = eng.mul(a, b)
         err = check("K4", k4, eng.mul_reference(a, b), "twin")
         check("K4", k4, k1, "K1")
         measure(recs, f"k4_{F.name}", f"K4 k4_field_mul {F.name} n={n} (and equal to K1)",
                 lambda: eng.mul(a, b), lambda: eng.mul_reference(a, b), 100, 1,
-                nbytes, 2 * n * madds(F), err=err)
+                *counts("k4_field_mul", F, n), err=err)
         k5 = mont_mma.mont_mul_mma(F, a, b)
         err = check("K5a", k5, mont_mma.mont_mul_mma_plain(F, a, b), "twin")
         check("K5a", k5, k1, "K1")
         k5a_edges(F, n, rng)
         measure(recs, f"k5a_{F.name}", f"K5a k5a_mont_mul_mma {F.name} n={n} (and equal to K1)",
                 lambda: mont_mma.mont_mul_mma(F, a, b), lambda: mont_mma.mont_mul_mma_plain(F, a, b),
-                100, 1, nbytes, n * mma_int_ops(F), n * mma_ops_per_elem(F), err=err)
+                100, 1, *counts("k5a_mont_mul_mma", F, n), err=err)
 
     F, n = fi.bls12_381_fr(), 1 << 17
     u, v, tw = (random_field(F, n, rng) for _ in range(3))
-    w = F.L // 2
     k2 = mont.butterfly(F, u, v, tw)
     err = check("K2", k2, mont.butterfly_plain(F, u, v, tw), "twin")
     measure(recs, "k2", f"K2 k2_butterfly fr n={n}", lambda: mont.butterfly(F, u, v, tw),
             lambda: mont.butterfly_plain(F, u, v, tw), 100, 1,
-            5 * n * F.L * 4, n * (2 * madds(F) + 4 * w), err=err)
+            *counts("k2_butterfly", F, n), err=err)
     k5 = mont_mma.butterfly_mma(F, u, v, tw)
     err = check("K5b", k5, mont_mma.butterfly_mma_plain(F, u, v, tw), "twin")
     check("K5b", k5, k2, "K2")
     measure(recs, "k5b", f"K5b k5b_butterfly_mma fr n={n} (and equal to K2)",
             lambda: mont_mma.butterfly_mma(F, u, v, tw), lambda: mont_mma.butterfly_mma_plain(F, u, v, tw),
-            100, 1, 5 * n * F.L * 4, n * (mma_int_ops(F) + 4 * w), n * mma_ops_per_elem(F), err=err)
+            100, 1, *counts("k5b_butterfly_mma", F, n), err=err)
 
     # K3/K5c at the MSMs' bucket width (2^16) and at a first tree level's
     # (2^20): a curve batch (held to host sums too) and an adversarial one
@@ -493,24 +388,23 @@ def check_kernels(seed: int):
             log(f"[kernels] K3 and K5c {kind} batch n={n}: equal to their twins and each other; {note}")
             if kind != "curve":
                 continue
-            nbytes = 9 * n * Fq.L * 4
             if n == 1 << 16:
                 measure(recs, "k3", f"K3 k3_sw_add g1 n={n}",
                         lambda: curve_add.sw_add(Fq, b3m, Pt, Qt),
                         lambda: curve_add.rcb_add_plain(Fq, b3m, Pt, Qt),
-                        40, 1, nbytes, n * k3_int_ops(Fq), err=err3)
+                        40, 1, *counts("k3_sw_add", Fq, n), err=err3)
                 measure(recs, "k5c", f"K5c k5c_sw_add_mma g1 n={n} (and equal to K3)",
                         lambda: curve_add.sw_add_mma(Fq, b3m, Pt, Qt),
                         lambda: curve_add.rcb_add_mma_plain(Fq, b3m, Pt, Qt), 40, 1,
-                        nbytes, n * k5c_int_ops(Fq), n * 10 * mma_ops_per_elem(Fq), err=err5)
+                        *counts("k5c_sw_add_mma", Fq, n), err=err5)
             else:
-                for key, fn, ops, mma in (
-                    ("k3", lambda: curve_add.sw_add(Fq, b3m, Pt, Qt), k3_int_ops(Fq), 0.0),
-                    ("k5c", lambda: curve_add.sw_add_mma(Fq, b3m, Pt, Qt), k5c_int_ops(Fq),
-                     10 * mma_ops_per_elem(Fq)),
+                for key, fn in (
+                    ("k3", lambda: curve_add.sw_add(Fq, b3m, Pt, Qt)),
+                    ("k5c", lambda: curve_add.sw_add_mma(Fq, b3m, Pt, Qt)),
                 ):
                     ms = cuda_ms(fn, 10, graph=True)
-                    bms, by = bound(nbytes, n * ops, n * mma)
+                    name = "k3_sw_add" if key == "k3" else "k5c_sw_add_mma"
+                    bms, by = bound(*counts(name, Fq, n))
                     recs[key].update(ms_n2e20=ms, bound_ms_n2e20=bms)
                     log(f"[kernels] {key.upper()} g1 n={n}: {ms:.4f} ms (bound {bms:.4f} ms by {by})")
     check_pasta(recs, rng)
@@ -531,20 +425,20 @@ def check_pasta(recs, rng):
     from contangle_zkcp_tpu_torch.curves.weierstrass import SWDevice
     from contangle_zkcp_tpu_torch.fields import instances as fi
     from contangle_zkcp_tpu_torch.ops import curve_add, mont
+    from contangle_zkcp_tpu_torch.utils.profiling import counts
 
     F, n = fi.pasta_fp(), 1 << 15
     a, b = random_field(F, n, rng), random_field(F, n, rng)
     err = check("K1", mont.mont_mul(F, a, b), mont.mont_mul_plain(F, a, b), "twin (pasta_fp)")
     measure(recs, "k1_pasta_fp", f"K1 k1_mont_mul pasta_fp n={n}",
             lambda: mont.mont_mul(F, a, b), lambda: mont.mont_mul_plain(F, a, b), 100, 1,
-            3 * n * F.L * 4, 2 * n * madds(F), err=err, shape="pasta_fp n=2^15")
+            *counts("k1_mont_mul", F, n), err=err, shape="pasta_fp n=2^15")
     n //= 2
-    w = F.L // 2
     u, v, tw = (random_field(F, n, rng) for _ in range(3))
     err = check("K2", mont.butterfly(F, u, v, tw), mont.butterfly_plain(F, u, v, tw), "twin (pasta_fp)")
     measure(recs, "k2_pasta_fp", f"K2 k2_butterfly pasta_fp n={n}",
             lambda: mont.butterfly(F, u, v, tw), lambda: mont.butterfly_plain(F, u, v, tw), 100, 1,
-            5 * n * F.L * 4, n * (2 * madds(F) + 4 * w), err=err, shape="pasta_fp n/2=2^14")
+            *counts("k2_butterfly", F, n), err=err, shape="pasta_fp n/2=2^14")
 
     for cname, C, Fq, sizes in (("vesta", ci.VESTA, fi.pasta_fq(), (1 << 12, 1 << 16)),
                                 ("pallas", ci.PALLAS, fi.pasta_fp(), (1 << 12,))):
@@ -568,12 +462,11 @@ def check_pasta(recs, rng):
                     f"twins and each other; {note}")
                 if kind != "curve" or cname != "vesta":
                     continue
-                nbytes = 9 * n * Fq.L * 4
                 tag = f"2e{n.bit_length() - 1}"
                 measure(recs, f"k3_vesta_{tag}", f"K3 k3_sw_add vesta (strict) n={n}",
                         lambda: curve_add.sw_add(Fq, b3m, Pt, Qt),
                         lambda: curve_add.rcb_add_plain(Fq, b3m, Pt, Qt), 40, 1,
-                        nbytes, n * k3_strict_int_ops(Fq), err=err3,
+                        *counts("k3_sw_add", Fq, n), err=err3,
                         shape=f"vesta n=2^{n.bit_length() - 1}")
                 if n == 1 << 12:
                     fold_launch_cost(recs, dev, Pt, Qt)
@@ -581,8 +474,7 @@ def check_pasta(recs, rng):
                     measure(recs, "k5c_vesta", f"K5c k5c_sw_add_mma vesta (strict) n={n}",
                             lambda: curve_add.sw_add_mma(Fq, b3m, Pt, Qt),
                             lambda: curve_add.rcb_add_mma_plain(Fq, b3m, Pt, Qt), 40, 1,
-                            nbytes, n * k5c_strict_int_ops(Fq), n * 12 * mma_ops_per_elem(Fq),
-                            err=err5, shape="vesta n=2^16")
+                            *counts("k5c_sw_add_mma", Fq, n), err=err5, shape="vesta n=2^16")
 
 
 def fold_launch_cost(recs, dev, Pt, Qt):
@@ -613,64 +505,52 @@ def check_bw6(recs, rng):
     K5b likewise."""
     from contangle_zkcp_tpu_torch.fields import instances as fi
     from contangle_zkcp_tpu_torch.ops import field_mul, mont, mont_mma
+    from contangle_zkcp_tpu_torch.utils.profiling import counts
 
     F, n = fi.bw6_761_fq(), 1 << 16
-    w = F.L // 2
     a, b = random_field(F, n, rng), random_field(F, n, rng)
     k1 = mont.mont_mul(F, a, b)
     err = check("K1", k1, mont.mont_mul_plain(F, a, b), "twin (bw6_761_fq)")
-    nbytes = 3 * n * F.L * 4
     measure(recs, "k1_bw6", f"K1 k1_mont_mul bw6_761_fq n={n}",
             lambda: mont.mont_mul(F, a, b), lambda: mont.mont_mul_plain(F, a, b), 100, 1,
-            nbytes, 2 * n * madds(F), err=err, shape="bw6_761_fq n=2^16")
+            *counts("k1_mont_mul", F, n), err=err, shape="bw6_761_fq n=2^16")
     eng = field_mul.make(F)
     err = check("K4", eng.mul(a, b), eng.mul_reference(a, b), "twin (bw6_761_fq)")
     check("K4", eng.mul(a, b), k1, "K1 (bw6_761_fq)")
     measure(recs, "k4_bw6", f"K4 k4_field_mul bw6_761_fq n={n} (and equal to K1)",
             lambda: eng.mul(a, b), lambda: eng.mul_reference(a, b), 100, 1,
-            nbytes, 2 * n * madds(F), err=err, shape="bw6_761_fq n=2^16")
+            *counts("k4_field_mul", F, n), err=err, shape="bw6_761_fq n=2^16")
     k5 = mont_mma.mont_mul_mma(F, a, b)
     err = check("K5a", k5, mont_mma.mont_mul_mma_plain(F, a, b), "twin (bw6_761_fq)")
     check("K5a", k5, k1, "K1 (bw6_761_fq)")
     k5a_edges(F, n, rng)
     measure(recs, "k5a_bw6", f"K5a k5a_mont_mul_mma bw6_761_fq n={n} (and equal to K1)",
             lambda: mont_mma.mont_mul_mma(F, a, b), lambda: mont_mma.mont_mul_mma_plain(F, a, b),
-            100, 1, nbytes, n * mma_int_ops(F), n * mma_ops_per_elem(F), err=err,
-            shape="bw6_761_fq n=2^16")
+            100, 1, *counts("k5a_mont_mul_mma", F, n), err=err, shape="bw6_761_fq n=2^16")
     u, v, tw = (random_field(F, n, rng) for _ in range(3))
     k2 = mont.butterfly(F, u, v, tw)
     err = check("K2", k2, mont.butterfly_plain(F, u, v, tw), "twin (bw6_761_fq)")
     measure(recs, "k2_bw6", f"K2 k2_butterfly bw6_761_fq n={n}",
             lambda: mont.butterfly(F, u, v, tw), lambda: mont.butterfly_plain(F, u, v, tw), 100, 1,
-            5 * n * F.L * 4, n * (2 * madds(F) + 4 * w), err=err, shape="bw6_761_fq n/2=2^16")
+            *counts("k2_butterfly", F, n), err=err, shape="bw6_761_fq n/2=2^16")
     k5 = mont_mma.butterfly_mma(F, u, v, tw)
     err = check("K5b", k5, mont_mma.butterfly_mma_plain(F, u, v, tw), "twin (bw6_761_fq)")
     check("K5b", k5, k2, "K2 (bw6_761_fq)")
     measure(recs, "k5b_bw6", f"K5b k5b_butterfly_mma bw6_761_fq n={n} (and equal to K2)",
             lambda: mont_mma.butterfly_mma(F, u, v, tw),
             lambda: mont_mma.butterfly_mma_plain(F, u, v, tw), 100, 1,
-            5 * n * F.L * 4, n * (mma_int_ops(F) + 4 * w), n * mma_ops_per_elem(F), err=err,
-            shape="bw6_761_fq n/2=2^16")
+            *counts("k5b_butterfly_mma", F, n), err=err, shape="bw6_761_fq n/2=2^16")
 
 
 NTT_OPS = ("forward", "inverse", "coset_forward", "coset_inverse")
-
-
-def k5b_ntt_counts(F, n: int, scaled: bool):
-    """(integer instructions, tensor-core operations) of one n-point
-    transform through k5b_ntt_pass: (n/2) log2 n butterflies of a K5
-    Montgomery product (mma_int_ops, mma_ops_per_elem) and an add and a
-    subtract (4W), plus n products when a pre- or post-scale is fused."""
-    w = F.L // 2
-    bfs = (n // 2) * (n.bit_length() - 1)
-    muls = bfs + (n if scaled else 0)
-    return bfs * 4 * w + muls * mma_int_ops(F), muls * mma_ops_per_elem(F)
 
 
 def ntt_time(recs, key, label, F, n, ntt, op, a, g, fn, twin, route, nbytes, ops, mma_ops, err):
     """One transform's device time (CUDA-graph replays) beside the
     one-stage route's and the twin's (first operation), its bound, and the
     wall time of one call; logs a line and keeps a record."""
+    from contangle_zkcp_tpu_torch.utils.profiling import bound
+
     ms = cuda_ms(fn, 20, graph=True)
     old = cuda_ms(route, 10, graph=True)
     pms = cuda_ms(twin, 1, batches=3) if op == NTT_OPS[0] else None
@@ -712,6 +592,7 @@ def check_ntt(recs, rng):
     from contangle_zkcp_tpu_torch.fields import instances as fi
     from contangle_zkcp_tpu_torch.ops import mont, mont_mma
     from contangle_zkcp_tpu_torch.ops.ntt import NTT
+    from contangle_zkcp_tpu_torch.utils.profiling import k2_ntt_int_ops, k5b_ntt_counts
 
     Fr, Fp = fi.bls12_381_fr(), fi.pasta_fp()
     fields = {F.name: F for F in (Fr, Fp)}
@@ -862,6 +743,9 @@ def msm_check(seed: int) -> str:
 
 
 ENGINES = ("lockstep", "balanced", "tree")
+# the full-size runs, in turns; the tree engine, on no policy path, runs
+# its checked warm-up on a 4,096-point slice only
+TURNS = ("lockstep", "balanced", "balanced", "lockstep")
 # the PoE's proving MSMs at N = 49,152 blocks: the H query (d - 1 points,
 # d = 2^18) in G1 with witness-like and uniform scalars, and the B query
 # in G2 (one point per variable: 202,506)
@@ -873,10 +757,10 @@ def run_msm(seed: int):
     (c = 16 in G1, 12 in G2, signed digits).  The points are k_i G from the
     card's fixed-base multiplier, so the exact answer is (sum s_i k_i) G,
     one host multiply: it holds every run, and on a 4,096-point slice each
-    engine's warm-up call.  Then the engines run in turns A B C B A in
-    this process; each run prints its ms, launches per kernel, the balanced
-    engine's trips T and overflow lanes, the tree's level count and the
-    peak device memory.  Returns (launches over the phase, seconds)."""
+    engine's warm-up call.  Then the lockstep and balanced engines run in
+    turns A B B A in this process; each run prints its ms, launches per
+    kernel, the balanced engine's trips T and overflow lanes and the peak
+    device memory.  Returns (launches over the phase, seconds)."""
     from contangle_zkcp_tpu_torch.curves import instances as ci
     from contangle_zkcp_tpu_torch.curves.fq2_device import Fq2Device
     from contangle_zkcp_tpu_torch.curves.weierstrass import SWDevice
@@ -921,8 +805,8 @@ def run_msm(seed: int):
         for e, eng in engines.items():  # warm-up: the 4,096-point slice
             if eng.run({k: v[:cut] for k, v in pts.items()}, limbs[:cut]) != want_cut:
                 raise AssertionError(f"[msm] {e} {group} on the {cut}-point slice != the host sum")
-        rows = {e: [] for e in ENGINES}
-        for e in ENGINES + ENGINES[-2::-1]:
+        rows = {e: [] for e in TURNS}
+        for e in TURNS:
             metrics.registry().reset()
             before = dict(cuda_lib.LAUNCHES)
             torch.cuda.synchronize()
@@ -940,18 +824,18 @@ def run_msm(seed: int):
                 timers_ms={k.split(".")[1]: round(v["total_sec"] * 1e3, 1) for k, v in sorted(snap["timers"].items())},
                 gauges={k.split(".")[1]: v for k, v in snap["gauges"].items()
                         if k in ("msm.balanced_trips", "msm.balanced_overflow_lanes",
-                                 "msm.balanced_fold_levels", "msm.tree_levels", "msm.heavy_buckets")},
+                                 "msm.balanced_fold_levels", "msm.heavy_buckets")},
                 peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2)))
-        for e in ENGINES:
+        for e in rows:
             log(f"[msm] {group} n={n} {kind} {e}: ms {[r['ms'] for r in rows[e]]}; launches "
                 f"{json.dumps(rows[e][0]['launches'], sort_keys=True)}; {json.dumps(rows[e][0]['gauges'])}; "
                 f"timers (ms) {[r['timers_ms'] for r in rows[e]]}; peak {rows[e][0]['peak_gib']} GiB")
-        table[f"{group}_{n}_{kind}"] = {e: [r["ms"] for r in rows[e]] for e in ENGINES}
+        table[f"{group}_{n}_{kind}"] = {e: [r["ms"] for r in rows[e]] for e in rows}
         del pts
         torch.cuda.empty_cache()
     launches = dict(cuda_lib.LAUNCHES)
-    log(f"[msm] all three engines equal the host sum at every shape; ms in turns "
-        f"(lockstep, balanced, tree, balanced, lockstep): {json.dumps(table)}")
+    log(f"[msm] all three engines equal the host sum at every shape (the tree engine on the "
+        f"4,096-point slice); ms in turns (lockstep, balanced, balanced, lockstep): {json.dumps(table)}")
     log(f"[msm] launches over the phase: {json.dumps(launches, sort_keys=True)}")
     for k in ("k1_mont_mul", "k3_sw_add"):
         if launches.get(k, 0) <= 0:
@@ -1286,6 +1170,151 @@ def run_property(n_blocks: int, seed: int):
             raise AssertionError(f"kernel {k} launched in the default configuration")
     log(f"[property] peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     shutil.rmtree(build_dir, ignore_errors=True)
+    return launches, times
+
+
+# -------------------------------------------------------------------- fold
+def run_fold(n_blocks: int, seed: int):
+    """The folding accumulator and its decider in the default
+    configuration (groth16/folding.py, decider.py, ipa_vec.py): four
+    satisfied PoE-shaped instances of n_blocks blocks (circuits/
+    poe_shape.py, the structure the reference's folding tests fold), the
+    scheme's bases (hashing on the host, the cofactor cleared on the card),
+    the four lifted, folded as a tree ((0+1), (2+3), then the two) and the
+    accumulator checked; the decider's bases (padded to powers of two), a
+    proof of the accumulator, its verification, and a proof with va + 1
+    and an instance with u + 1 rejected.  Every device MSM of the scheme
+    and of the first round of both openings is held to msm_host on the
+    same points and scalars, and 64 device-cleared bases to the host's
+    cofactor multiply.  The host sums run beside the phase in spawned
+    worker processes (pure host integers; no worker touches the card),
+    one core left to the phase, all shut down before this returns.
+    Returns (launches over the phase, seconds)."""
+    import concurrent.futures
+    import multiprocessing
+
+    workers = max(1, min(7, (os.cpu_count() or 2) - 1))
+    pool = concurrent.futures.ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        return fold_phase(n_blocks, seed, pool, workers)
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
+def fold_phase(n_blocks: int, seed: int, pool, workers: int):
+    import dataclasses
+
+    from contangle_zkcp_tpu_torch.circuits.poe_shape import mini_poe_cs
+    from contangle_zkcp_tpu_torch.curves import instances as ci
+    from contangle_zkcp_tpu_torch.groth16 import folding
+    from contangle_zkcp_tpu_torch.groth16.decider import Decider
+    from contangle_zkcp_tpu_torch.ops import cuda_lib
+    from contangle_zkcp_tpu_torch.ops.msm import msm_host
+
+    C, P = ci.BLS12_381_G1, folding._R
+    css = [mini_poe_cs(n_blocks, seed + 11 * (i + 1)) for i in range(4)]
+    cs = css[0]
+    log(f"[fold] structure n={n_blocks}: {cs.num_constraints} constraints, {cs.num_variables} "
+        f"variables ({cs.num_instance} instance), four satisfied instances")
+    checks = {}  # tag -> [(points, device result, future of msm_host)]
+
+    def record(eng, tag, first=None):
+        """Hand the engine's MSMs (all, or the first `first`) to the
+        host oracle as they are made."""
+        run = eng.run
+
+        def recorded(points, scalars):
+            out = run(points, scalars)
+            runs = checks.setdefault(tag, [])
+            if first is None or len(runs) < first:
+                runs.append((len(points), out, pool.submit(msm_host, C, list(points), list(scalars))))
+            return out
+
+        eng.run = recorded
+
+    cuda_lib.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+
+    def step(name, fn):
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.time() - t0
+        return out
+
+    scheme = step("bases", lambda: folding.FoldingScheme(cs, device="cuda"))
+    if scheme._msm is None:
+        raise AssertionError("[fold] the scheme's commitments are not on the device MSM")
+    record(scheme._msm, "scheme")
+    lifted = step("lift", lambda: [scheme.instance_from_cs(c) for c in css])
+
+    def tree():
+        i01, w01 = scheme.fold(*lifted[0], *lifted[1])
+        i23, w23 = scheme.fold(*lifted[2], *lifted[3])
+        return scheme.fold(i01, w01, i23, w23)
+
+    acc_i, acc_w = step("fold", tree)
+    if not step("check", lambda: scheme.check(acc_i, acc_w)):
+        raise AssertionError("[fold] the folded accumulator does not check")
+    log(f"[fold] bases {times['bases']:.3f} s ({len(scheme.bases_w)} + {len(scheme.bases_e)}), "
+        f"lift {times['lift']:.3f} s, three folds {times['fold']:.3f} s, check {times['check']:.3f} s; "
+        f"accumulator u != 1: {acc_i.u != 1}; {len(checks['scheme'])} device commitments")
+
+    dec = step("decider_bases", lambda: Decider(scheme))
+    for ipa, tag in ((dec.ipa_e, "open_e"), (dec.ipa_w, "open_w")):
+        if ipa._msm is None:
+            raise AssertionError(f"[fold] the decider's {tag} is not on the device MSM")
+        record(ipa._msm, tag, first=2)  # round 1: L, R
+    proof = step("prove", lambda: dec.prove(acc_i, acc_w))
+    if not step("verify", lambda: dec.verify(acc_i, proof)):
+        raise AssertionError("[fold] the decider rejected its own proof")
+    bad_proof = dataclasses.replace(proof, va=(proof.va + 1) % P)
+    if step("reject_va", lambda: dec.verify(acc_i, bad_proof)):
+        raise AssertionError("[fold] the decider accepted a proof with va + 1")
+    bad_inst = dataclasses.replace(acc_i, u=(acc_i.u + 1) % P)
+    if step("reject_u", lambda: dec.verify(bad_inst, proof)):
+        raise AssertionError("[fold] the decider accepted an instance with u + 1")
+    launches = dict(cuda_lib.LAUNCHES)
+    log(f"[fold] decider (NC {dec.NC}, NZ {dec.NZ}): bases {times['decider_bases']:.3f} s, prove "
+        f"{times['prove']:.3f} s ({len(proof.outer_polys)} outer and {len(proof.inner_polys)} "
+        f"inner sumcheck rounds, {len(proof.open_e.rounds)} + {len(proof.open_w.rounds)} opening "
+        f"rounds), verify {times['verify']:.3f} s; va + 1 rejected {times['reject_va']:.3f} s, "
+        f"u + 1 rejected {times['reject_u']:.3f} s")
+    log(f"[fold] launches over the phase: {json.dumps(launches, sort_keys=True)}")
+    log(f"[fold] peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches.get("k3_sw_add", 0) <= 0:
+        raise AssertionError("kernel k3_sw_add was not launched by the [fold] phase")
+    for k in MXU_KERNELS + OFF_PATH:
+        if launches.get(k, 0):
+            raise AssertionError(f"kernel {k} launched by the [fold] phase")
+
+    # ---- exact checks against the host (none of them launches a kernel)
+    t0 = time.time()
+    raw = folding._hash_points_raw(b"contangle-fold-w", 64)
+    if scheme.bases_w[:64] != [C.mul(folding._H1, pt) for pt in raw]:
+        raise AssertionError("[fold] device-cleared bases differ from the host's")
+    if len(checks["scheme"]) != 9:
+        raise AssertionError(f"[fold] {len(checks['scheme'])} device commitments, not 4 lifts + "
+                             f"3 comm_T + 2 checks")
+    for ipa, tag in ((dec.ipa_e, "open_e"), (dec.ipa_w, "open_w")):
+        if [n for n, _, _ in checks[tag]] != [ipa.n // 2] * 2:
+            raise AssertionError(f"[fold] {tag}'s first round did not run on the device MSM")
+    want = {}
+    for tag, runs in checks.items():
+        want[tag] = [fut.result() for _, _, fut in runs]
+        for (n, got, _), w in zip(runs, want[tag]):
+            if got != w:
+                raise AssertionError(f"[fold] a device MSM of {tag} ({n} points) != msm_host")
+    if ([i.comm_w for i, _ in lifted] != want["scheme"][:4]
+            or [acc_i.comm_w, acc_i.comm_e] != want["scheme"][7:9]):
+        raise AssertionError("[fold] a lifted or accumulated commitment differs from msm_host")
+    times["host_checks"] = time.time() - t0
+    log(f"[fold] exact: 13 device MSMs (4 lifted comm_w, 3 comm_T, the accumulator's comm_w and "
+        f"comm_e, L and R of both openings' first round) equal msm_host, the accumulator's "
+        f"commitments too, 64 device-cleared bases equal C.mul(_H1, P); msm_host in {workers} host "
+        f"processes beside the phase, {times['host_checks']:.2f} s waited after it")
     return launches, times
 
 
@@ -1625,8 +1654,9 @@ MORE_SHAPES = {
 def kernel_line(recs, launches):
     """The {"kernels": [...]} records.  `launches` is the sum over the
     driven paths (the [msm] and [edwards] phases, the PoE, the Proof of
-    Property and the PLONKish prover in the default configuration, the
-    sale under ZKCP_MXU=1),
+    Property, the folding accumulator and its decider ([fold]) and the
+    PLONKish prover in the default configuration, the sale under
+    ZKCP_MXU=1),
     `launches_by_path` each path's own count (K4 is on none: reached only through its own entry
     point, ops/field_mul.py); `more` holds the other shapes checked."""
     out = []
@@ -1663,6 +1693,8 @@ def main() -> int:
                     help="data blocks of the sale, a power of two (default 65536)")
     ap.add_argument("--plonk-rows", type=int, default=4096,
                     help="rows of the PLONKish ElGamal circuit, a power of two (default 4096, k = 12)")
+    ap.add_argument("--fold-blocks", type=int, default=1024,
+                    help="blocks of each PoE-shaped instance the [fold] phase folds (default 1024)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (a quick run; prints no result line)")
@@ -1670,6 +1702,8 @@ def main() -> int:
                     help="the build and the [plonk] phase alone (prints no result line)")
     ap.add_argument("--msm-only", action="store_true",
                     help="the build, the MSM checks and the [msm] phase alone (prints no result line)")
+    ap.add_argument("--fold-only", action="store_true",
+                    help="the build and the [fold] phase alone (prints no result line)")
     ap.add_argument("--root", default=ROOT,
                     help="the checkout whose port package is driven (default: this script's)")
     args = ap.parse_args()
@@ -1700,9 +1734,16 @@ def main() -> int:
         run_plonk(args.plonk_rows, args.seed, own=os.path.samefile(args.root, ROOT))
         log(f"[done] plonk phase only: wall {time.time() - t_start:.1f} s")
         return 0
+    if args.fold_only:
+        run_fold(args.fold_blocks, args.seed)
+        log(f"[done] fold phase only: wall {time.time() - t_start:.1f} s")
+        return 0
     recs = {}
     if not args.msm_only:
-        log(f"[bound] integer rate: {set_int_rate()}; int8 tensor rate {INT8_MMA_OPS_PER_S:.4g} op/s")
+        from contangle_zkcp_tpu_torch.utils import profiling
+
+        log(f"[bound] integer rate: {profiling.set_int_rate()}; int8 tensor rate "
+            f"{profiling.INT8_MMA_OPS_PER_S:.4g} op/s")
         recs = check_kernels(args.seed)
     if args.kernels_only:
         log(f"[done] kernel checks only: wall {time.time() - t_start:.1f} s")
@@ -1725,6 +1766,7 @@ def main() -> int:
 
     launches["poe"], times["poe"] = run_slice(args.blocks, args.seed)
     launches["property"], times["property"] = run_property(args.blocks, args.seed)
+    launches["fold"], times["fold"] = run_fold(args.fold_blocks, args.seed)
     launches["sale"], times["sale"] = run_sale(args.sale_blocks, args.seed)
 
     t0 = time.time()

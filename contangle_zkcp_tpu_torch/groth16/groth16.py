@@ -288,6 +288,7 @@ class Groth16:
         cs: ConstraintSystem,
         rng: random.Random,
         engine: str = "auto",
+        debug_trapdoor: bool = False,
     ):
         """CRS generation.
 
@@ -295,6 +296,11 @@ class Groth16:
         tests), "device" (batched fixed-base multiplier on this engine's
         device, ops/fixed_base.py — the scale path), or "auto" (device
         for a CRS of 16384 elements or more).
+
+        debug_trapdoor keeps the toxic waste and the QAP evaluations at
+        tau on the ProvingKey (attribute `trapdoor`), so that `prove`
+        checks every MSM against its expected scalar with exact host Fr
+        arithmetic (`_debug_check_msms`) — never enable outside debugging.
         """
         ctx = self.ctx
         r = ctx.r
@@ -388,6 +394,17 @@ class Groth16:
             l_query=l_query,
             domain=d,
         )
+        if debug_trapdoor:
+            pk.trapdoor = {
+                "alpha": alpha,
+                "beta": beta,
+                "gamma": gamma,
+                "delta": delta,
+                "tau": tau,
+                "u": u,
+                "v": v,
+                "w": w,
+            }
         return pk, vk
 
     # ------------------------------------------------------------- prove
@@ -454,6 +471,15 @@ class Groth16:
                 else None
             )
 
+        td = getattr(pk, "trapdoor", None)
+        if td is not None:
+            try:
+                self._debug_check_msms(
+                    td, qap, z, h_can, a_acc, b2_acc, b1_acc, l_acc, h_acc
+                )
+            except Exception as e:  # instrumentation must never kill a run
+                print(f"[trapdoor] check crashed: {e!r}", flush=True)
+
         # ---- assemble (host point algebra)
         A = g1.add(g1.add(self._vk_alpha(pk), a_acc), g1.mul(rr, pk.delta_g1))
         g2add = ctx.g2_dev.host_add
@@ -467,6 +493,48 @@ class Groth16:
 
     def _vk_alpha(self, pk):
         return pk.vk.alpha_g1
+
+    def _debug_check_msms(self, td, qap, z, h_can, a_acc, b2_acc, b1_acc, l_acc, h_acc):
+        """Trapdoor-mode stage checks: every prover MSM against its
+        expected scalar (exact host Fr arithmetic).  Prints one PASS/FAIL
+        line per stage — pinpoints a bad engine without touching pairings."""
+        from ..fields.bigint import limbs_to_ints
+
+        ctx = self.ctx
+        r, g1 = ctx.r, ctx.g1
+        tau, alpha, beta, delta = td["tau"], td["alpha"], td["beta"], td["delta"]
+        u, v, w = td["u"], td["v"], td["w"]
+        dinv = pow(delta, -1, r)
+        a_tau = sum(zi * ui for zi, ui in zip(z, u)) % r
+        b_tau = sum(zi * vi for zi, vi in zip(z, v)) % r
+        c_tau = sum(zi * wi for zi, wi in zip(z, w)) % r
+        l_tau = (
+            sum(
+                zi * ((beta * ui + alpha * vi + wi) % r)
+                for zi, ui, vi, wi in zip(
+                    z[qap.ni :], u[qap.ni :], v[qap.ni :], w[qap.ni :]
+                )
+            )
+            * dinv
+            % r
+        )
+        hs = limbs_to_ints(h_can.cpu().numpy())
+        h_tau = 0
+        for c in reversed(hs):
+            h_tau = (h_tau * tau + c) % r
+        z_tau = (pow(tau, qap.domain, r) - 1) % r
+
+        def rep(name, ok):
+            print(f"[trapdoor] {name}: {'PASS' if ok else 'FAIL'}", flush=True)
+
+        rep("qap_identity h(t)Z(t)==a(t)b(t)-c(t)",
+            h_tau * z_tau % r == (a_tau * b_tau - c_tau) % r)
+        rep("msm_a", a_acc == g1.mul(a_tau, g1.generator))
+        rep("msm_b_g1", b1_acc == g1.mul(b_tau, g1.generator))
+        g2d = ctx.g2_dev
+        rep("msm_b_g2", b2_acc == g2d.host_mul(b_tau, ctx.g2_gen))
+        rep("msm_l", l_acc == g1.mul(l_tau, g1.generator))
+        rep("msm_h", h_acc == g1.mul(h_tau * z_tau % r * dinv % r, g1.generator))
 
     def input_sum(self, vk: VerifyingKey, public_inputs):
         """gamma_abc[0] + sum x_i gamma_abc[i + 1], a host affine point.

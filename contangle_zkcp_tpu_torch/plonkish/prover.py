@@ -273,36 +273,34 @@ class PlonkSystem:
             "instance": inst_cols,
         }
         theta = tr.squeeze_challenge()
-        _t_lookups = metrics.timer("plonk.lookups")
-        _t_lookups.__enter__()
-        lookup_data = []
-        for lk in meta.lookups:
-            a_vec = [0] * n
-            s_vec = [0] * n
-            t_pow = 1
-            for inp, tab in lk.pairs:
-                iv = inp.eval_vec(base_tables, P, n)
-                tv = tab.eval_vec(base_tables, P, n)
-                for r in range(n):
-                    a_vec[r] = (a_vec[r] + t_pow * iv[r]) % P
-                    s_vec[r] = (s_vec[r] + t_pow * tv[r]) % P
-                t_pow = t_pow * theta % P
-            ap_vals, sp_vals = self._permute_lookup(a_vec, s_vec)
-            ap_poly = self._blind(_coeffs_from_evals(ap_vals, self.device), rng)
-            sp_poly = self._blind(_coeffs_from_evals(sp_vals, self.device), rng)
-            lookup_data.append(
-                {
-                    "a": a_vec,
-                    "s": s_vec,
-                    "ap": ap_vals,
-                    "sp": sp_vals,
-                    "ap_poly": ap_poly,
-                    "sp_poly": sp_poly,
-                    "ap_comm": self.ipa.commit(ap_poly),
-                    "sp_comm": self.ipa.commit(sp_poly),
-                }
-            )
-        _t_lookups.__exit__(None, None, None)
+        with metrics.timer("plonk.lookups"):
+            lookup_data = []
+            for lk in meta.lookups:
+                a_vec = [0] * n
+                s_vec = [0] * n
+                t_pow = 1
+                for inp, tab in lk.pairs:
+                    iv = inp.eval_vec(base_tables, P, n)
+                    tv = tab.eval_vec(base_tables, P, n)
+                    for r in range(n):
+                        a_vec[r] = (a_vec[r] + t_pow * iv[r]) % P
+                        s_vec[r] = (s_vec[r] + t_pow * tv[r]) % P
+                    t_pow = t_pow * theta % P
+                ap_vals, sp_vals = self._permute_lookup(a_vec, s_vec)
+                ap_poly = self._blind(_coeffs_from_evals(ap_vals, self.device), rng)
+                sp_poly = self._blind(_coeffs_from_evals(sp_vals, self.device), rng)
+                lookup_data.append(
+                    {
+                        "a": a_vec,
+                        "s": s_vec,
+                        "ap": ap_vals,
+                        "sp": sp_vals,
+                        "ap_poly": ap_poly,
+                        "sp_poly": sp_poly,
+                        "ap_comm": self.ipa.commit(ap_poly),
+                        "sp_comm": self.ipa.commit(sp_poly),
+                    }
+                )
         lookup_perm_comms = [(d["ap_comm"], d["sp_comm"]) for d in lookup_data]
         for a_c, s_c in lookup_perm_comms:
             tr.common_point(a_c)
@@ -311,86 +309,80 @@ class PlonkSystem:
         gamma = tr.squeeze_challenge()
 
         # ---- permutation grand product on the base domain
-        _t_gp = metrics.timer("plonk.grand_products")
-        _t_gp.__enter__()
-        w = self.domain_w
-        ws = [pow(w, r, P) for r in range(n)]
-        cols_v = []
-        for k, i in self.perm_cols:
-            if k == "advice":
-                cols_v.append(list(asg.advice[i]))
-            else:
-                cols_v.append(inst_cols[i])
-        m = len(self.perm_cols)
-        z = [1]
-        for r in range(n - 1):
-            num = den = 1
-            for j in range(m):
-                v = cols_v[j][r]
-                num = num * ((v + beta * pk.vk.deltas[j] * ws[r] + gamma) % P) % P
-                den = den * ((v + beta * pk.sigma_evals[j][r] + gamma) % P) % P
-            z.append(z[-1] * num % P * pow(den, -1, P) % P)
-        z_poly = self._blind(_coeffs_from_evals(z, self.device), rng)
-        z_comm = self.ipa.commit(z_poly)
-
-        # ---- lookup grand products
-        for d in lookup_data:
-            zl = [1]
+        with metrics.timer("plonk.grand_products"):
+            w = self.domain_w
+            ws = [pow(w, r, P) for r in range(n)]
+            cols_v = []
+            for k, i in self.perm_cols:
+                if k == "advice":
+                    cols_v.append(list(asg.advice[i]))
+                else:
+                    cols_v.append(inst_cols[i])
+            m = len(self.perm_cols)
+            z = [1]
             for r in range(n - 1):
-                num = (d["a"][r] + beta) * (d["s"][r] + gamma) % P
-                den = (d["ap"][r] + beta) * (d["sp"][r] + gamma) % P
-                zl.append(zl[-1] * num % P * pow(den, -1, P) % P)
-            d["z_poly"] = self._blind(_coeffs_from_evals(zl, self.device), rng)
-            d["z_comm"] = self.ipa.commit(d["z_poly"])
-        lookup_z_comms = [d["z_comm"] for d in lookup_data]
-        _t_gp.__exit__(None, None, None)
+                num = den = 1
+                for j in range(m):
+                    v = cols_v[j][r]
+                    num = num * ((v + beta * pk.vk.deltas[j] * ws[r] + gamma) % P) % P
+                    den = den * ((v + beta * pk.sigma_evals[j][r] + gamma) % P) % P
+                z.append(z[-1] * num % P * pow(den, -1, P) % P)
+            z_poly = self._blind(_coeffs_from_evals(z, self.device), rng)
+            z_comm = self.ipa.commit(z_poly)
+
+            # ---- lookup grand products
+            for d in lookup_data:
+                zl = [1]
+                for r in range(n - 1):
+                    num = (d["a"][r] + beta) * (d["s"][r] + gamma) % P
+                    den = (d["ap"][r] + beta) * (d["sp"][r] + gamma) % P
+                    zl.append(zl[-1] * num % P * pow(den, -1, P) % P)
+                d["z_poly"] = self._blind(_coeffs_from_evals(zl, self.device), rng)
+                d["z_comm"] = self.ipa.commit(d["z_poly"])
+            lookup_z_comms = [d["z_comm"] for d in lookup_data]
         tr.common_point(z_comm)
         for c in lookup_z_comms:
             tr.common_point(c)
         alpha = tr.squeeze_challenge()
 
         # ---- quotient on the extended coset
-        _t_q = metrics.timer("plonk.quotient")
-        _t_q.__enter__()
-        if self.use_device:
-            t_evals = self._quotient_device(
-                advice_polys, inst_polys, z_poly, lookup_data,
-                theta, beta, gamma, alpha,
-            )
-        else:
-            t_evals = self._quotient_host(
-                advice_polys, inst_polys, z_poly, lookup_data,
-                theta, beta, gamma, alpha,
-            )
-        t_coeffs = _coeffs_from_coset(t_evals, self.device)
-        # split into ext chunks of degree < n
-        t_chunks = [t_coeffs[c * n : (c + 1) * n] for c in range(ext)]
-        with metrics.timer("plonk.t_commits"):
-            t_comms = [self.ipa.commit(c) for c in t_chunks]
-        _t_q.__exit__(None, None, None)
+        with metrics.timer("plonk.quotient"):
+            if self.use_device:
+                t_evals = self._quotient_device(
+                    advice_polys, inst_polys, z_poly, lookup_data,
+                    theta, beta, gamma, alpha,
+                )
+            else:
+                t_evals = self._quotient_host(
+                    advice_polys, inst_polys, z_poly, lookup_data,
+                    theta, beta, gamma, alpha,
+                )
+            t_coeffs = _coeffs_from_coset(t_evals, self.device)
+            # split into ext chunks of degree < n
+            t_chunks = [t_coeffs[c * n : (c + 1) * n] for c in range(ext)]
+            with metrics.timer("plonk.t_commits"):
+                t_comms = [self.ipa.commit(c) for c in t_chunks]
         for c in t_comms:
             tr.common_point(c)
         x = tr.squeeze_challenge()
         wx = x * w % P
         wix = x * pow(w, -1, P) % P
 
-        _t_ev = metrics.timer("plonk.evals")
-        _t_ev.__enter__()
-        evals = {
-            "advice_x": [_eval_at(c, x) for c in advice_polys],
-            "advice_wx": [_eval_at(c, wx) for c in advice_polys],
-            "fixed_x": [_eval_at(c, x) for c in pk.fixed_polys],
-            "sigma_x": [_eval_at(c, x) for c in pk.sigma_polys],
-            "z_x": _eval_at(z_poly, x),
-            "z_wx": _eval_at(z_poly, wx),
-            "t_x": [_eval_at(c, x) for c in t_chunks],
-            "lk_ap_x": [_eval_at(d["ap_poly"], x) for d in lookup_data],
-            "lk_ap_wix": [_eval_at(d["ap_poly"], wix) for d in lookup_data],
-            "lk_sp_x": [_eval_at(d["sp_poly"], x) for d in lookup_data],
-            "lk_z_x": [_eval_at(d["z_poly"], x) for d in lookup_data],
-            "lk_z_wx": [_eval_at(d["z_poly"], wx) for d in lookup_data],
-        }
-        _t_ev.__exit__(None, None, None)
+        with metrics.timer("plonk.evals"):
+            evals = {
+                "advice_x": [_eval_at(c, x) for c in advice_polys],
+                "advice_wx": [_eval_at(c, wx) for c in advice_polys],
+                "fixed_x": [_eval_at(c, x) for c in pk.fixed_polys],
+                "sigma_x": [_eval_at(c, x) for c in pk.sigma_polys],
+                "z_x": _eval_at(z_poly, x),
+                "z_wx": _eval_at(z_poly, wx),
+                "t_x": [_eval_at(c, x) for c in t_chunks],
+                "lk_ap_x": [_eval_at(d["ap_poly"], x) for d in lookup_data],
+                "lk_ap_wix": [_eval_at(d["ap_poly"], wix) for d in lookup_data],
+                "lk_sp_x": [_eval_at(d["sp_poly"], x) for d in lookup_data],
+                "lk_z_x": [_eval_at(d["z_poly"], x) for d in lookup_data],
+                "lk_z_wx": [_eval_at(d["z_poly"], wx) for d in lookup_data],
+            }
         self._absorb_evals(tr, evals)
         nu = tr.squeeze_challenge()
 

@@ -5,10 +5,12 @@
 
 Compiles ZkEncryption at N blocks (default 49,152), warms up with one
 encrypt + prove, then traces a second one with torch.profiler (CPU and
-CUDA activities) and prints, one line each: the wall time of the traced
-call, the device time summed over all kernels, the device's idle share
-(1 - busy / wall, with overlapping kernels merged), and the ten kernels
-with the most device time.  Needs a CUDA device; exits nonzero without one.
+CUDA activities; utils/profiling.py `trace`, which writes a Chrome trace
+to contangle_zkcp_tpu_torch/build/trace/trace.json) and prints, one line
+each: the wall time of the traced call, the device time summed over all
+kernels, the device's idle share (1 - busy / wall, with overlapping
+kernels merged), and the ten kernels with the most device time.  Needs a
+CUDA device; exits nonzero without one.
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ def main() -> int:
     import chip_smoke
     from contangle_zkcp_tpu_torch.circuits import elgamal
     from contangle_zkcp_tpu_torch.curves import instances as ci
+    from contangle_zkcp_tpu_torch.utils import profiling
     from contangle_zkcp_tpu_torch.zkcp.zk_encryption import ZkEncryption
 
     build_dir = os.path.join(ROOT, "contangle_zkcp_tpu_torch", "build", "profile_zk")
@@ -70,8 +73,7 @@ def main() -> int:
     zk.encrypt(msg, pk, rng)  # warm-up: caches, allocator, twiddle tables
     torch.cuda.synchronize()
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with profiling.trace() as prof:
         t0 = time.time()
         cipher, proof = zk.encrypt(msg, pk, rng)
         torch.cuda.synchronize()
@@ -88,6 +90,7 @@ def main() -> int:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             per[e.name] = per.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e6
     top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
+    print(f"[profile] Chrome trace: {os.path.join(profiling.TRACE_DIR, 'trace.json')}", flush=True)
     print("[profile] top kernels (s): " + json.dumps([[k[:60], round(v, 4)] for k, v in top]),
           flush=True)
     shutil.rmtree(build_dir, ignore_errors=True)

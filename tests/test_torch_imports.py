@@ -105,6 +105,15 @@ def test_port_covers_the_slice():
         "circomx/witness_calc.py",
         "circomx/wrapper.py",
         "zkcp/property.py",
+        # the folding accumulator and its decider, the trapdoor aids,
+        # the profiling module
+        "groth16/sumcheck.py",
+        "groth16/ipa_vec.py",
+        "groth16/folding.py",
+        "groth16/decider.py",
+        "groth16/aggregate.py",
+        "utils/profiling.py",
+        "circuits/poe_shape.py",
     ):
         assert (PORT / rel).exists(), rel
 
@@ -114,6 +123,9 @@ def _entry_points():
     from contangle_zkcp_tpu_torch.curves.weierstrass import SWDevice
     from contangle_zkcp_tpu_torch.fields.fp import Fp
     from contangle_zkcp_tpu_torch.groth16 import groth16, convert
+    from contangle_zkcp_tpu_torch.groth16.aggregate import batch_verify
+    from contangle_zkcp_tpu_torch.groth16.folding import FoldingScheme
+    from contangle_zkcp_tpu_torch.groth16.ipa_vec import VectorIPA
     from contangle_zkcp_tpu_torch.ops.ntt import NTT
     from contangle_zkcp_tpu_torch.ops.merkle import build_tree_device
     from contangle_zkcp_tpu_torch.plonkish.ipa import IPA
@@ -152,7 +164,21 @@ def _entry_points():
         QuotientDevice.__init__,
         EdwardsDevice.__init__,
         ZkPropertyVerifier.__init__,
+        FoldingScheme.__init__,
+        VectorIPA.__init__,
+        batch_verify,
     ]
+
+
+def test_decider_and_trapdoor_aids_are_ported():
+    """The decider runs on its scheme's device; the Groth16 trapdoor aids
+    exist with the reference's signatures."""
+    from contangle_zkcp_tpu_torch.groth16.decider import Decider
+    from contangle_zkcp_tpu_torch.groth16.groth16 import Groth16
+
+    assert list(inspect.signature(Decider.__init__).parameters) == ["self", "fs", "use_device_msm"]
+    assert inspect.signature(Groth16.setup).parameters["debug_trapdoor"].default is False
+    assert callable(Groth16._debug_check_msms)
 
 
 def test_kernel_list_names_every_source():
@@ -171,7 +197,7 @@ def test_cli_device_defaults_to_cuda():
         assert cli.parser().parse_args(argv).device == "cuda", argv[0]
 
 
-@pytest.mark.parametrize("idx", range(25))
+@pytest.mark.parametrize("idx", range(28))
 def test_entry_points_default_to_cuda(idx):
     fn = _entry_points()[idx]
     assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__

@@ -204,3 +204,48 @@ def test_small_proof_verifies_and_binds_its_instance(use_device):
     proof = system.prove(asg, instances, rng=random.Random(100))
     assert system.verify(proof, instances)
     assert not system.verify(proof, [[(instances[0][0] + 1) % P]])
+
+
+PHASE_TIMERS = ("plonk.lookups", "plonk.grand_products", "plonk.quotient", "plonk.evals")
+
+
+@pytest.mark.parametrize("fault", [None, "lookups"], ids=["normal", "raise_in_lookups"])
+def test_prover_phase_timers(fault, monkeypatch):
+    """The prover's four phase timers are `with` blocks: a small prove
+    records each of them once; a step inside `plonk.lookups` that raises
+    reaches the caller unchanged, with that timer closed (recorded) and
+    no later phase begun."""
+    from contangle_zkcp_tpu_torch.utils import metrics
+
+    meta = CircuitMeta(p=P)
+    val, table = meta.advice_column(), meta.fixed_column()
+    inst = meta.instance_column()
+    meta.lookup("range16", [(Expr.col(val), Expr.col(table))])
+    n = 16
+    asg = Assignment(meta, n)
+    rng = random.Random(5)
+    for r in range(n):
+        asg.assign(table, r, r % 16)
+        asg.assign(val, r, rng.randrange(16))
+    asg.constrain_instance(val, 0, inst, 0)
+    instances = [[asg.advice[0][0]]]
+    system = PlonkSystem(meta, n, asg, device="cpu")
+    boom = RuntimeError("lookup step failed")
+    if fault:
+        def failing(*_):
+            raise boom
+
+        monkeypatch.setattr(system, "_permute_lookup", failing)
+    metrics.registry().reset()
+    if fault:
+        with pytest.raises(RuntimeError) as err:
+            system.prove(asg, instances, rng=random.Random(100))
+        assert err.value is boom
+    else:
+        assert system.verify(system.prove(asg, instances, rng=random.Random(100)), instances)
+    timers = metrics.registry().snapshot()["timers"]
+    got = {name: timers.get(name, {}).get("count", 0) for name in PHASE_TIMERS}
+    want = {name: 1 for name in PHASE_TIMERS}
+    if fault:
+        want = {name: int(name == "plonk.lookups") for name in PHASE_TIMERS}
+    assert got == want
