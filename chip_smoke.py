@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
 
     python3 chip_smoke.py [--blocks N] [--sale-blocks N] [--plonk-rows N] [--fold-blocks N]
-                          [--seed S] [--kernels-only | --plonk-only | --msm-only | --fold-only]
-                          [--root DIR]
+                          [--seed S] [--kernels-only | --plonk-only | --msm-only | --fold-only
+                          | --parallel-only] [--root DIR]
 
 Phases, one line each as it finishes:
   1. the device: name, torch and CUDA versions, nvidia-smi name and
@@ -23,8 +23,10 @@ Phases, one line each as it finishes:
      its passes, the stage loop and the other kernel's transform (Fr
      n = 2^19, 2^18, 2^15, 2^14, 2^13, Pasta Fp n = 2^15 and 2^12, and
      n = 2, 4, 1024), timed beside the one-stage route each replaced
-     (k2_butterfly or k5b_butterfly_mma, with F.mul); with ptxas's
-     registers and spills (`--kernels-only` stops here);
+     (k2_butterfly or k5b_butterfly_mma, with F.mul); both pass kernels on
+     batches of transforms (B = 512 of 2^9, B = 4 of 2^18; one launch a
+     pass) against their batched twins and B single-transform launches;
+     with ptxas's registers and spills (`--kernels-only` stops here);
   4. the MSM engines on the card against the exact host sum msm_host:
      the lockstep engine on a 256-point G1 MSM; BalancedMSM (a 64-lane
      overflow pool, so segments, fold levels and merges run) and TreeMSM
@@ -35,7 +37,7 @@ Phases, one line each as it finishes:
      at the PoE's real shapes (the G1 H query, 262,143 points, with
      witness-like and uniform scalars; the G2 B query, 202,506 points) on
      the policy's window, each held to the exact host sum (whole and on a
-     4,096-point slice), lockstep and balanced in turns A B B A after a
+     4,096-point slice), lockstep then balanced, one run each, after a
      warm-up call of each engine on the slice (the tree engine, on no
      policy path, only there), with ms, launches, the balanced engine's
      trips and overflow lanes and peak memory (`--msm-only` runs phases
@@ -75,8 +77,22 @@ Phases, one line each as it finishes:
      commitment and the first round of both openings held to msm_host in
      host worker processes, 64 device-cleared bases to the host; seconds a
      step, opening rounds, K1 and K3 launches (K3 required; no K5 or
-     k2_butterfly), peak memory (`--fold-only` runs phases 1, 2 and this
-     one alone);
+     k2_butterfly), peak memory; then the same four instances tree-folded
+     by parallel/'s MeshFoldPipeline (bases sharded once, each level's
+     comm_T as one multi-vector MSM, one all-reduce) on an NCCL group of
+     world size 1, its accumulator equal to the sequential one, checked,
+     its three comm_T equal to msm_host's (`--fold-only` runs phases 1, 2
+     and this one alone);
+  10b. the [parallel] phase (parallel/ on the same world-size-1 NCCL
+     mesh, every local phase at full width): ShardedMSM on the PoE's H
+     query (G1, 262,143 points, witness-like scalars, c = 16 signed), run
+     and run_scheduled, each equal to the exact host sum and the lockstep
+     MSM.run; the four-step NTT at Fr 2^18 (batched column and row passes,
+     the twiddle slab made on the card, the transposes as all-to-alls)
+     equal to NTT.forward limb for limb, default and ZKCP_MXU=1, and
+     ShardedNTT round-tripping; ms, launches, peak memory
+     (`--parallel-only` runs phases 1, 2, this one and the mesh fold of
+     [fold]'s instances against their sequential tree);
   11. the whole sale under ZKCP_MXU=1 (the tensor-core configuration) at
      N blocks (default 65,536): compile the three circuits, seller step 0
      (PoE + SampleEntries proof), buyer step 0 (verify, with the device
@@ -331,6 +347,7 @@ def check_kernels(seed: int):
 
     rng = np.random.default_rng(seed)
     recs = {}
+    t_all = time.time()
 
     for F, n in ((fi.bls12_381_fr(), 1 << 18), (fi.bls12_381_fq(), 1 << 18)):
         a, b = random_field(F, n, rng), random_field(F, n, rng)
@@ -409,8 +426,14 @@ def check_kernels(seed: int):
                     log(f"[kernels] {key.upper()} g1 n={n}: {ms:.4f} ms (bound {bms:.4f} ms by {by})")
     check_pasta(recs, rng)
     check_bw6(recs, rng)
+    t0 = time.time()
     check_ntt(recs, rng)
+    log(f"[kernels] NTT passes: {time.time() - t0:.2f} s")
+    t0 = time.time()
+    check_ntt_batched(recs, rng)
+    log(f"[kernels] batched NTT passes: {time.time() - t0:.2f} s")
     log(f"[kernels] ptxas: {ptxas_summary()}")
+    log(f"[kernels] all checks: {time.time() - t_all:.2f} s")
     return recs
 
 
@@ -553,7 +576,7 @@ def ntt_time(recs, key, label, F, n, ntt, op, a, g, fn, twin, route, nbytes, ops
 
     ms = cuda_ms(fn, 20, graph=True)
     old = cuda_ms(route, 10, graph=True)
-    pms = cuda_ms(twin, 1, batches=3) if op == NTT_OPS[0] else None
+    pms = cuda_ms(twin, 1, batches=1) if op == NTT_OPS[0] else None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(50):
@@ -658,6 +681,84 @@ def check_ntt(recs, rng):
         f"by pass, to the stage loops and to each other: {small[0]} .. {small[-1]}")
 
 
+# the batched passes' shapes: the four-step NTT's column and row transforms
+# at Fr 2^18 on one card (512 transforms of 2^9: one pass with the gather)
+# and a batch of four whole 2^18 transforms (two passes)
+NTT_BATCHES = ((512, 9), (4, 18))
+
+
+def check_ntt_batched(recs, rng):
+    """The NTT passes on a batch (B, n, L) of transforms, each pass ONE
+    launch (NTT.forward_batched; k2_ntt_pass, and k5b_ntt_pass under
+    ZKCP_MXU=1) at NTT_BATCHES: every pass equal to its batched twin and
+    to B launches on one transform each, the whole batch equal to
+    NTT.forward on its last transform; the batch's device time (CUDA-graph
+    replays) beside B single-transform launches a pass (`old_ms`), its
+    bound (B x one transform's counts) and the wall of one call."""
+    from contangle_zkcp_tpu_torch.fields import instances as fi
+    from contangle_zkcp_tpu_torch.ops import mont, mont_mma
+    from contangle_zkcp_tpu_torch.ops.ntt import NTT
+    from contangle_zkcp_tpu_torch.utils.profiling import bound, counts
+
+    F = fi.bls12_381_fr()
+    for B, logn in NTT_BATCHES:
+        n = 1 << logn
+        ntt = NTT(F, n, device="cuda")
+        a = random_field(F, B * n, rng).reshape(B, n, F.L)
+        table = ntt.pass_operands("forward")[0]
+        for key, kernel, run, plain in (("k2", "k2_ntt_pass", mont.ntt_pass, mont.ntt_pass_plain),
+                                        ("k5b", "k5b_ntt_pass", mont_mma.ntt_pass_mma,
+                                         mont_mma.ntt_pass_mma_plain)):
+            tag = f"B={B} x n=2^{logn} forward"
+            env = {"ZKCP_MXU": "1"} if key == "k5b" else {}
+            x, err = a, 0
+            for i, (s0, t) in enumerate(ntt.plan):
+                got = run(F, x, table, s0, t, gather=i == 0)
+                err = max(err, check(kernel, got, plain(F, x, table, s0, t, gather=i == 0),
+                                     f"batched twin ({tag}, pass {s0}+{t})"))
+                one = torch.stack([run(F, x[b], table, s0, t, gather=i == 0) for b in range(B)])
+                check(kernel, got, one, f"{B} single-transform launches ({tag}, pass {s0}+{t})")
+                x = got
+            os.environ.update(env)
+            try:
+                res = ntt.forward_batched(a)
+                check(kernel, res, x, f"its passes ({tag})")
+                check(kernel, res[B - 1], ntt.forward(a[B - 1]), f"NTT.forward ({tag})")
+
+                def batched():
+                    return ntt.forward_batched(a)
+
+                def singles():
+                    y = a
+                    for i, (s0, t) in enumerate(ntt.plan):
+                        y = torch.stack([run(F, y[b], table, s0, t, gather=i == 0) for b in range(B)])
+                    return y
+
+                ms = cuda_ms(batched, 20, graph=True)
+                old = cuda_ms(singles, 2, graph=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    batched()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) / 20 * 1e3
+            finally:
+                for k in env:
+                    os.environ.pop(k, None)
+            pms = cuda_ms(lambda: plain(F, a, table, 0, logn, gather=True), 1, batches=1)
+            nbytes, ops, mma = counts(kernel, F, n)
+            bms, by = bound(B * nbytes, B * ops, B * mma)
+            plan = "+".join(str(t) for _, t in ntt.plan)
+            log(f"[kernels] {kernel} batched {tag}: equal pass by pass to its batched twin and to "
+                f"{B} single-transform launches; {ms:.4f} ms a batch in {len(ntt.plan)} launches "
+                f"({plan}) (twin {pms:.3f} ms, bound {bms:.4f} ms by {by}, {bms / ms:.0%}); {B} "
+                f"single-transform launches a pass {old:.4f} ms ({old / ms:.1f}x); wall of one call "
+                f"{wall:.4f} ms")
+            recs[f"{key}_ntt_batch_{B}x2e{logn}"] = dict(
+                ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, err=err, old_ms=old, wall_ms=wall,
+                plan=plan, shape=f"bls12_381_fr B={B} x n=2^{logn} forward, batched")
+
+
 # --------------------------------------------------------------------- msm
 def msm_check(seed: int) -> str:
     """The card's MSM engines against the exact host sum msm_host.  The
@@ -743,9 +844,10 @@ def msm_check(seed: int) -> str:
 
 
 ENGINES = ("lockstep", "balanced", "tree")
-# the full-size runs, in turns; the tree engine, on no policy path, runs
-# its checked warm-up on a 4,096-point slice only
-TURNS = ("lockstep", "balanced", "balanced", "lockstep")
+# the full-size runs, one each (their second turns, B A, were cut to keep
+# the smoke wall near 600 s); the tree engine, on no policy path, runs its
+# checked warm-up on a 4,096-point slice only
+TURNS = ("lockstep", "balanced")
 # the PoE's proving MSMs at N = 49,152 blocks: the H query (d - 1 points,
 # d = 2^18) in G1 with witness-like and uniform scalars, and the B query
 # in G2 (one point per variable: 202,506)
@@ -757,8 +859,8 @@ def run_msm(seed: int):
     (c = 16 in G1, 12 in G2, signed digits).  The points are k_i G from the
     card's fixed-base multiplier, so the exact answer is (sum s_i k_i) G,
     one host multiply: it holds every run, and on a 4,096-point slice each
-    engine's warm-up call.  Then the lockstep and balanced engines run in
-    turns A B B A in this process; each run prints its ms, launches per
+    engine's warm-up call.  Then the lockstep and balanced engines run once
+    each (TURNS) in this process; each run prints its ms, launches per
     kernel, the balanced engine's trips T and overflow lanes and the peak
     device memory.  Returns (launches over the phase, seconds)."""
     from contangle_zkcp_tpu_torch.curves import instances as ci
@@ -835,7 +937,7 @@ def run_msm(seed: int):
         torch.cuda.empty_cache()
     launches = dict(cuda_lib.LAUNCHES)
     log(f"[msm] all three engines equal the host sum at every shape (the tree engine on the "
-        f"4,096-point slice); ms in turns (lockstep, balanced, balanced, lockstep): {json.dumps(table)}")
+        f"4,096-point slice); ms ({', '.join(TURNS)}): {json.dumps(table)}")
     log(f"[msm] launches over the phase: {json.dumps(launches, sort_keys=True)}")
     for k in ("k1_mont_mul", "k3_sw_add"):
         if launches.get(k, 0) <= 0:
@@ -1174,7 +1276,7 @@ def run_property(n_blocks: int, seed: int):
 
 
 # -------------------------------------------------------------------- fold
-def run_fold(n_blocks: int, seed: int):
+def run_fold(n_blocks: int, seed: int, mesh):
     """The folding accumulator and its decider in the default
     configuration (groth16/folding.py, decider.py, ipa_vec.py): four
     satisfied PoE-shaped instances of n_blocks blocks (circuits/
@@ -1188,7 +1290,10 @@ def run_fold(n_blocks: int, seed: int):
     same points and scalars, and 64 device-cleared bases to the host's
     cofactor multiply.  The host sums run beside the phase in spawned
     worker processes (pure host integers; no worker touches the card),
-    one core left to the phase, all shut down before this returns.
+    one core left to the phase, all shut down before this returns.  Then
+    the same four instances tree-folded by parallel/fold_pipeline.py
+    MeshFoldPipeline on `mesh`: its accumulator equal to the sequential
+    one, and its three comm_T to the ones held to msm_host.
     Returns (launches over the phase, seconds)."""
     import concurrent.futures
     import multiprocessing
@@ -1197,12 +1302,12 @@ def run_fold(n_blocks: int, seed: int):
     pool = concurrent.futures.ProcessPoolExecutor(
         workers, mp_context=multiprocessing.get_context("spawn"))
     try:
-        return fold_phase(n_blocks, seed, pool, workers)
+        return fold_phase(n_blocks, seed, pool, workers, mesh)
     finally:
         pool.shutdown(cancel_futures=True)
 
 
-def fold_phase(n_blocks: int, seed: int, pool, workers: int):
+def fold_phase(n_blocks: int, seed: int, pool, workers: int, mesh):
     import dataclasses
 
     from contangle_zkcp_tpu_torch.circuits.poe_shape import mini_poe_cs
@@ -1315,6 +1420,222 @@ def fold_phase(n_blocks: int, seed: int, pool, workers: int):
         f"comm_e, L and R of both openings' first round) equal msm_host, the accumulator's "
         f"commitments too, 64 device-cleared bases equal C.mul(_H1, P); msm_host in {workers} host "
         f"processes beside the phase, {times['host_checks']:.2f} s waited after it")
+
+    # ---- the same instances through the mesh pipeline (parallel/)
+    del scheme._msm.run  # stop recording: the mesh fold's check recommits
+    comms, times["mesh_fold"], _ = mesh_fold(scheme, lifted, (acc_i, acc_w), mesh)
+    if comms != want["scheme"][4:7]:
+        raise AssertionError("[fold] the mesh fold's comm_T differ from msm_host's")
+    log("[fold] the mesh fold's three comm_T equal msm_host's")
+    return dict(cuda_lib.LAUNCHES), times
+
+
+# ---------------------------------------------------------------- parallel
+# the PoE's proving shapes at 49,152 blocks: the H query (d - 1 G1 points,
+# d = 2^18) and the quotient's domain
+PARALLEL_MSM_N = 262143
+PARALLEL_NTT_LOG = 18
+
+
+def open_mesh():
+    """The parallel paths' mesh on the card: an NCCL group of world size 1
+    (parallel/mesh.py make_mesh: a file store, no network)."""
+    from contangle_zkcp_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.time()
+    mesh = make_mesh(device="cuda")
+    log(f"[mesh] {mesh.backend} group of world size {mesh.size}, rank {mesh.rank} on {mesh.device}, "
+        f"axis {mesh.axis!r}: {time.time() - t0:.2f} s")
+    return mesh
+
+
+def mesh_fold(scheme, lifted, acc, mesh):
+    """MeshFoldPipeline.fold_stream over the lifted instances: its
+    accumulator must equal `acc` (the sequential tree's) in comm_w, comm_e,
+    u, x, w and e, and check.  Returns (its comm_T in the tree's order, the
+    seconds of the fold, the launches it made)."""
+    from contangle_zkcp_tpu_torch.ops import cuda_lib
+    from contangle_zkcp_tpu_torch.parallel.fold_pipeline import MeshFoldPipeline
+
+    before = dict(cuda_lib.LAUNCHES)
+    t0 = time.time()
+    pipe = MeshFoldPipeline(scheme, mesh)
+    comms, commit = [], pipe.commit_many
+
+    def recorded(vecs):
+        out = commit(vecs)
+        comms.extend(out)
+        return out
+
+    pipe.commit_many = recorded
+    inst, wit = pipe.fold_stream(lifted)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    acc_i, acc_w = acc
+    for name, got, want in (("comm_w", inst.comm_w, acc_i.comm_w), ("comm_e", inst.comm_e, acc_i.comm_e),
+                            ("u", inst.u, acc_i.u), ("x", inst.x, acc_i.x), ("w", wit.w, acc_w.w),
+                            ("e", wit.e, acc_w.e)):
+        if got != want:
+            raise AssertionError(f"[fold] the mesh-folded accumulator's {name} differs from the "
+                                 f"sequential tree's")
+    if not scheme.check(inst, wit):
+        raise AssertionError("[fold] the mesh-folded accumulator does not check")
+    launches = {k: v - before.get(k, 0) for k, v in cuda_lib.LAUNCHES.items() if v - before.get(k, 0)}
+    log(f"[fold] MeshFoldPipeline ({mesh.backend}, world size {mesh.size}; {pipe.n_pts} bases "
+        f"sharded once, c = {pipe.msm.c}): tree fold {secs:.3f} s, {len(comms)} comm_T in "
+        f"{len(lifted).bit_length() - 1} multi-vector MSMs; accumulator equal to the sequential "
+        f"tree's (comm_w, comm_e, u, x, w, e) and checks; launches {json.dumps(launches, sort_keys=True)}")
+    return comms, secs, launches
+
+
+def fold_for_mesh(n_blocks: int, seed: int, mesh):
+    """--parallel-only's fold: the [fold] phase's four instances, the
+    sequential tree, and the mesh fold held to it (its comm_T equal to the
+    tree's)."""
+    from contangle_zkcp_tpu_torch.circuits.poe_shape import mini_poe_cs
+    from contangle_zkcp_tpu_torch.groth16 import folding
+
+    css = [mini_poe_cs(n_blocks, seed + 11 * (i + 1)) for i in range(4)]
+    scheme = folding.FoldingScheme(css[0], device=mesh.device)
+    lifted = [scheme.instance_from_cs(c) for c in css]
+    seq, run = [], scheme._msm.run
+
+    def recorded(points, scalars):
+        seq.append(run(points, scalars))
+        return seq[-1]
+
+    scheme._msm.run = recorded
+    i01, w01 = scheme.fold(*lifted[0], *lifted[1])
+    i23, w23 = scheme.fold(*lifted[2], *lifted[3])
+    acc = scheme.fold(i01, w01, i23, w23)
+    del scheme._msm.run
+    comms, _, _ = mesh_fold(scheme, lifted, acc, mesh)
+    if comms != seq:
+        raise AssertionError("[fold] the mesh fold's comm_T differ from the sequential tree's")
+
+
+def run_parallel(seed: int, mesh):
+    """The [parallel] phase (parallel/) on the card through the mesh (NCCL,
+    world size 1: every local phase at full width, the collectives run):
+    ShardedMSM on the PoE's H query (G1, 262,143 points k_i G from the
+    card's fixed-base multiplier, witness-like scalars, the policy's
+    window), run and run_scheduled each once, both equal to the exact host
+    sum (sum s_i k_i) G and to the lockstep MSM.run on the same inputs; the
+    four-step NTT at Fr 2^18 (n1 = n2 = 2^9: one batched pass of 512
+    transforms a side) equal to NTT.forward limb for limb, in the default
+    configuration and under ZKCP_MXU=1; ShardedNTT forward and inverse
+    round-tripping at 2^18.  Prints ms, launches and peak memory.
+    Returns (launches over the phase, seconds)."""
+    from contangle_zkcp_tpu_torch.curves import instances as ci
+    from contangle_zkcp_tpu_torch.curves.weierstrass import SWDevice
+    from contangle_zkcp_tpu_torch.fields import instances as fi
+    from contangle_zkcp_tpu_torch.fields.bigint import ints_to_limbs
+    from contangle_zkcp_tpu_torch.ops import cuda_lib
+    from contangle_zkcp_tpu_torch.ops.fixed_base import FixedBaseDevice
+    from contangle_zkcp_tpu_torch.ops.msm import MSM
+    from contangle_zkcp_tpu_torch.ops.msm_policy import msm_config
+    from contangle_zkcp_tpu_torch.ops.ntt import NTT
+    from contangle_zkcp_tpu_torch.parallel import ShardedMSM, ShardedNTT
+    from contangle_zkcp_tpu_torch.parallel.ntt_sharded import FourStepNTT
+
+    C, R = ci.BLS12_381_G1, fi.BLS12_381_R
+    dev = SWDevice(fi.bls12_381_fq(), C, device=mesh.device)
+    rng = random.Random(seed + 17)
+    cuda_lib.reset_launches()
+    t_phase = time.time()
+    times = {}
+
+    def diff(before):
+        return {k: v - before.get(k, 0) for k, v in cuda_lib.LAUNCHES.items() if v - before.get(k, 0)}
+
+    # ---- ShardedMSM on the H query
+    n = PARALLEL_MSM_N
+    t0 = time.time()
+    ks = [rng.randrange(1, R) for _ in range(n)]
+    sc = [rng.randrange(R) if rng.random() < 0.5 else rng.randrange(2) for _ in range(n)]
+    pts = FixedBaseDevice(dev, C.generator, R.bit_length(), chunk=1 << 16).mul_ints(ks)
+    limbs = ints_to_limbs(sc, 16)
+    want = dev.host_mul(sum(s * k for s, k in zip(sc, ks)) % R, C.generator)
+    cut = 4096
+    want_cut = dev.host_mul(sum(s * k for s, k in zip(sc[:cut], ks[:cut])) % R, C.generator)
+    torch.cuda.synchronize()
+    cfg = msm_config("g1", n)
+    msm = MSM(dev, 255, c=cfg.c, signed=cfg.signed)
+    sharded = ShardedMSM(msm, mesh)
+    log(f"[parallel] ShardedMSM g1 n={n} witness-like scalars, c={cfg.c} signed={cfg.signed} "
+        f"({sharded.slots} partial slots a rank): points and the exact sum in {time.time() - t0:.2f} s")
+    runs = (("msm_lockstep", "lockstep MSM.run", msm.run),
+            ("msm_run", "ShardedMSM.run", sharded.run),
+            ("msm_run_scheduled", "ShardedMSM.run_scheduled", sharded.run_scheduled))
+    for _, name, fn in runs:  # warm-up, checked: the 4,096-point slice
+        if fn({k: v[:cut] for k, v in pts.items()}, limbs[:cut]) != want_cut:
+            raise AssertionError(f"[parallel] {name} on the {cut}-point slice != the exact host sum")
+    for key, name, fn in runs:
+        before = dict(cuda_lib.LAUNCHES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        got = fn(pts, limbs)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+        if got != want:
+            raise AssertionError(f"[parallel] {name} g1 n={n}: result != the exact host sum")
+        times[key] = ms / 1e3
+        log(f"[parallel] {name}: {ms:.1f} ms, equal to the exact host sum"
+            f"{' and to the lockstep MSM.run' if 'Sharded' in name else ''}; launches "
+            f"{json.dumps(diff(before), sort_keys=True)}; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del pts
+    torch.cuda.empty_cache()
+
+    # ---- the four-step and sharded NTTs at the PoE's domain
+    F, logn = fi.bls12_381_fr(), PARALLEL_NTT_LOG
+    n = 1 << logn
+    a = random_field(F, n, np.random.default_rng(seed + 19))
+    ntt = NTT(F, n, device=mesh.device)
+    t0 = time.time()
+    four = FourStepNTT(F, n, mesh)
+    torch.cuda.synchronize()
+    t_setup = time.time() - t0
+    want = ntt.forward(a)
+    before = dict(cuda_lib.LAUNCHES)
+    check("FourStepNTT", four.forward(a), want, f"NTT.forward (Fr 2^{logn})")
+    calls = {"default": diff(before)}
+    os.environ["ZKCP_MXU"] = "1"
+    try:
+        before = dict(cuda_lib.LAUNCHES)
+        check("FourStepNTT under ZKCP_MXU=1", four.forward(a), want, f"NTT.forward (Fr 2^{logn})")
+        calls["ZKCP_MXU=1"] = diff(before)
+        ms_four5 = cuda_ms(lambda: four.forward(a), 10)
+        ms_one5 = cuda_ms(lambda: ntt.forward(a), 10)
+    finally:
+        os.environ.pop("ZKCP_MXU", None)
+    sh = ShardedNTT(ntt, mesh)
+    ev = sh.forward(sh.shard(a))
+    check("ShardedNTT", mesh.gather(ev), want, f"NTT.forward (Fr 2^{logn})")
+    check("ShardedNTT", mesh.gather(sh.inverse(ev)), a, "its input after forward and inverse")
+    ms_four = cuda_ms(lambda: four.forward(a), 10)
+    ms_one = cuda_ms(lambda: ntt.forward(a), 10)
+    mat = a.reshape(four.n1, four.n2, F.L)
+    ms_a2a = cuda_ms(lambda: mesh.all_to_all(mat, split_axis=1, concat_axis=0), 10)
+    times.update(ntt_four_step_ms=ms_four, ntt_forward_ms=ms_one, ntt_four_step_mxu_ms=ms_four5,
+                 ntt_forward_mxu_ms=ms_one5, ntt_setup=t_setup, all_to_all_ms=ms_a2a)
+    log(f"[parallel] FourStepNTT Fr n=2^{logn} (n1 = {four.n1}, n2 = {four.n2}; twiddle slab made on "
+        f"the card in {t_setup:.3f} s): equal to NTT.forward limb for limb, default and ZKCP_MXU=1; "
+        f"ShardedNTT forward equal and inverse round-trips; ms a transform (CUDA events, no graph) "
+        f"four-step {ms_four:.4f} vs NTT.forward {ms_one:.4f} ({ms_four / ms_one:.2f}x), under "
+        f"ZKCP_MXU=1 {ms_four5:.4f} vs {ms_one5:.4f}; one of its three all-to-alls {ms_a2a:.4f} ms; "
+        f"launches a four-step call {json.dumps(calls, sort_keys=True)}")
+    launches = dict(cuda_lib.LAUNCHES)
+    times["parallel"] = time.time() - t_phase
+    log(f"[parallel] launches over the phase: {json.dumps(launches, sort_keys=True)}; "
+        f"{times['parallel']:.2f} s")
+    for k in ("k1_mont_mul", "k2_ntt_pass", "k3_sw_add", "k5a_mont_mul_mma", "k5b_ntt_pass"):
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the [parallel] phase")
+    for k in OFF_PATH + ("k5c_sw_add_mma",):
+        if launches.get(k, 0):
+            raise AssertionError(f"kernel {k} launched by the [parallel] phase")
     return launches, times
 
 
@@ -1641,8 +1962,10 @@ NTT_SHAPES = (("bls12_381_fr", 18), ("bls12_381_fr", 19), ("bls12_381_fr", 15),
 MORE_SHAPES = {
     "k1_mont_mul": ("k1_pasta_fp", "k1_bw6"),
     "k2_butterfly": ("k2_pasta_fp", "k2_bw6"),
-    "k2_ntt_pass": tuple(f"k2_ntt_{f}_2e{k}_{op}" for f, k in NTT_SHAPES for op in NTT_OPS)[1:],
-    "k5b_ntt_pass": tuple(f"k5b_ntt_{f}_2e{k}_{op}" for f, k in NTT_SHAPES for op in NTT_OPS)[1:],
+    "k2_ntt_pass": tuple(f"k2_ntt_{f}_2e{k}_{op}" for f, k in NTT_SHAPES for op in NTT_OPS)[1:]
+    + tuple(f"k2_ntt_batch_{b}x2e{k}" for b, k in NTT_BATCHES),
+    "k5b_ntt_pass": tuple(f"k5b_ntt_{f}_2e{k}_{op}" for f, k in NTT_SHAPES for op in NTT_OPS)[1:]
+    + tuple(f"k5b_ntt_batch_{b}x2e{k}" for b, k in NTT_BATCHES),
     "k3_sw_add": ("k3_vesta_2e12", "k3_vesta_2e16"),
     "k4_field_mul": ("k4_bw6",),
     "k5a_mont_mul_mma": ("k5a_bw6",),
@@ -1654,9 +1977,10 @@ MORE_SHAPES = {
 def kernel_line(recs, launches):
     """The {"kernels": [...]} records.  `launches` is the sum over the
     driven paths (the [msm] and [edwards] phases, the PoE, the Proof of
-    Property, the folding accumulator and its decider ([fold]) and the
-    PLONKish prover in the default configuration, the sale under
-    ZKCP_MXU=1),
+    Property, the folding accumulator and its decider with the mesh fold
+    ([fold]), the parallel paths ([parallel]: the sharded MSM, the
+    four-step NTT, default and ZKCP_MXU=1) and the PLONKish prover in the
+    default configuration, the sale under ZKCP_MXU=1),
     `launches_by_path` each path's own count (K4 is on none: reached only through its own entry
     point, ops/field_mul.py); `more` holds the other shapes checked."""
     out = []
@@ -1704,6 +2028,9 @@ def main() -> int:
                     help="the build, the MSM checks and the [msm] phase alone (prints no result line)")
     ap.add_argument("--fold-only", action="store_true",
                     help="the build and the [fold] phase alone (prints no result line)")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="the build and the [parallel] phase alone, with the mesh fold of the [fold] "
+                         "phase's instances (prints no result line)")
     ap.add_argument("--root", default=ROOT,
                     help="the checkout whose port package is driven (default: this script's)")
     args = ap.parse_args()
@@ -1730,49 +2057,63 @@ def main() -> int:
     log(f"[build] {os.path.relpath(path, ROOT)} in {time.time() - t0:.2f} s "
         f"(one nvcc per source, all started together, sm_90a)")
 
-    if args.plonk_only:
-        run_plonk(args.plonk_rows, args.seed, own=os.path.samefile(args.root, ROOT))
-        log(f"[done] plonk phase only: wall {time.time() - t_start:.1f} s")
-        return 0
-    if args.fold_only:
-        run_fold(args.fold_blocks, args.seed)
-        log(f"[done] fold phase only: wall {time.time() - t_start:.1f} s")
-        return 0
-    recs = {}
-    if not args.msm_only:
-        from contangle_zkcp_tpu_torch.utils import profiling
+    mesh = None
+    try:
+        if args.plonk_only:
+            run_plonk(args.plonk_rows, args.seed, own=os.path.samefile(args.root, ROOT))
+            log(f"[done] plonk phase only: wall {time.time() - t_start:.1f} s")
+            return 0
+        if args.fold_only or args.parallel_only:
+            mesh = open_mesh()
+        if args.fold_only:
+            run_fold(args.fold_blocks, args.seed, mesh)
+            log(f"[done] fold phase only: wall {time.time() - t_start:.1f} s")
+            return 0
+        if args.parallel_only:
+            run_parallel(args.seed, mesh)
+            fold_for_mesh(args.fold_blocks, args.seed, mesh)
+            log(f"[done] parallel phase only: wall {time.time() - t_start:.1f} s")
+            return 0
+        recs = {}
+        if not args.msm_only:
+            from contangle_zkcp_tpu_torch.utils import profiling
 
-        log(f"[bound] integer rate: {profiling.set_int_rate()}; int8 tensor rate "
-            f"{profiling.INT8_MMA_OPS_PER_S:.4g} op/s")
-        recs = check_kernels(args.seed)
-    if args.kernels_only:
-        log(f"[done] kernel checks only: wall {time.time() - t_start:.1f} s")
-        return 0
+            log(f"[bound] integer rate: {profiling.set_int_rate()}; int8 tensor rate "
+                f"{profiling.INT8_MMA_OPS_PER_S:.4g} op/s")
+            recs = check_kernels(args.seed)
+        if args.kernels_only:
+            log(f"[done] kernel checks only: wall {time.time() - t_start:.1f} s")
+            return 0
 
-    t0 = time.time()
-    note = msm_check(args.seed)
-    log(f"[msm] {note}: {time.time() - t0:.2f} s")
-    launches, times = {}, {}
-    launches["msm"], times["msm"] = run_msm(args.seed)
-    if args.msm_only:
-        log(f"[done] msm phases only: wall {time.time() - t_start:.1f} s")
-        return 0
-    launches["edwards"], times["edwards"] = run_edwards(args.seed)
+        t0 = time.time()
+        note = msm_check(args.seed)
+        log(f"[msm] {note}: {time.time() - t0:.2f} s")
+        launches, times = {}, {}
+        launches["msm"], times["msm"] = run_msm(args.seed)
+        if args.msm_only:
+            log(f"[done] msm phases only: wall {time.time() - t_start:.1f} s")
+            return 0
+        launches["edwards"], times["edwards"] = run_edwards(args.seed)
 
-    t0 = time.time()
-    toy_golden()
-    log(f"[golden] toy Groth16 pk/vk/proof bytes equal the pinned golden, "
-        f"proof verifies: {time.time() - t0:.2f} s")
+        t0 = time.time()
+        toy_golden()
+        log(f"[golden] toy Groth16 pk/vk/proof bytes equal the pinned golden, "
+            f"proof verifies: {time.time() - t0:.2f} s")
 
-    launches["poe"], times["poe"] = run_slice(args.blocks, args.seed)
-    launches["property"], times["property"] = run_property(args.blocks, args.seed)
-    launches["fold"], times["fold"] = run_fold(args.fold_blocks, args.seed)
-    launches["sale"], times["sale"] = run_sale(args.sale_blocks, args.seed)
+        launches["poe"], times["poe"] = run_slice(args.blocks, args.seed)
+        launches["property"], times["property"] = run_property(args.blocks, args.seed)
+        mesh = open_mesh()
+        launches["fold"], times["fold"] = run_fold(args.fold_blocks, args.seed, mesh)
+        launches["parallel"], times["parallel"] = run_parallel(args.seed, mesh)
+        launches["sale"], times["sale"] = run_sale(args.sale_blocks, args.seed)
 
-    t0 = time.time()
-    note = plonk_exact(args.seed)
-    log(f"[plonk] exact check: {note}: {time.time() - t0:.2f} s")
-    launches["plonk"], times["plonk"] = run_plonk(args.plonk_rows, args.seed)
+        t0 = time.time()
+        note = plonk_exact(args.seed)
+        log(f"[plonk] exact check: {note}: {time.time() - t0:.2f} s")
+        launches["plonk"], times["plonk"] = run_plonk(args.plonk_rows, args.seed)
+    finally:
+        if mesh is not None:
+            mesh.close()
 
     log(f"[done] wall {time.time() - t_start:.1f} s; phases (s): "
         f"{json.dumps({p: {k: round(v, 3) for k, v in t.items()} for p, t in times.items()})}")

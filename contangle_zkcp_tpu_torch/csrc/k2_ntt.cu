@@ -9,7 +9,9 @@
 // time loop over the whole n-element array (ops/mont.py ntt_pass_plain is
 // the same function in plain torch).  ops/ntt.py pass_plan splits the
 // log2 n stages into 1-3 such passes.  The tiles, the index maps and the
-// launch geometry are ntt_tile.cuh's, shared with k5b_ntt_mma.cu.
+// launch geometry are ntt_tile.cuh's, shared with k5b_ntt_mma.cu; a launch
+// may run a batch of B transforms (the four-step NTT's columns and rows,
+// parallel/ntt_sharded.py), one grid of B x (n >> tile_log) blocks.
 //
 // The first pass (gather) reads element i from position brev(i) (the
 // bit reversal) and may multiply it by pre[src]
@@ -96,15 +98,16 @@ k2_ntt_kernel(NttPass P, FieldConst<W> F) {
 }
 
 template <int W>
-int launch_k2_ntt(NttPass P, long long n, const uint32_t* p, uint32_t n0, cudaStream_t s) {
+int launch_k2_ntt(NttPass P, long long n, long long batch, const uint32_t* p, uint32_t n0,
+                  cudaStream_t s) {
   static const cudaError_t sized = cudaFuncSetAttribute(  // once: above 48 KB is dynamic
       k2_ntt_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)ntt_tile_smem<W>(NTT_TILE_LOG));
   if (sized != cudaSuccess) return (int)sized;
-  const int tile_log = ntt_geometry(P, n);
+  const int tile_log = ntt_geometry(P, n, batch);
   if (tile_log < 0) return (int)cudaErrorInvalidValue;
   const int threads = (1 << (tile_log - 1)) < NTT_THREADS ? 1 << (tile_log - 1) : NTT_THREADS;
-  const unsigned blocks = (unsigned)(n >> tile_log);
+  const unsigned blocks = (unsigned)(batch << P.nblk_log);  // B x (n >> tile_log)
   k2_ntt_kernel<W><<<blocks, threads, ntt_tile_smem<W>(tile_log), s>>>(P, make_field<W>(p, n0));
   return (int)cudaGetLastError();
 }
@@ -112,13 +115,13 @@ int launch_k2_ntt(NttPass P, long long n, const uint32_t* p, uint32_t n0, cudaSt
 }  // namespace
 
 extern "C" int k2_ntt_pass(const void* a, void* out, const void* table, const void* pre,
-                           const void* post, int post_vec, long long n, int s0, int t,
-                           int gather, int nwords, const uint32_t* p, uint32_t n0,
+                           const void* post, int post_vec, long long n, long long batch, int s0,
+                           int t, int gather, int nwords, const uint32_t* p, uint32_t n0,
                            void* stream) {
   const NttPass P{(const int32_t*)a, (int32_t*)out, (const uint32_t*)table,
                   (const uint32_t*)pre, (const uint32_t*)post, post_vec, 0, s0, t, 0, gather};
   switch (nwords) {
-    case 8: return launch_k2_ntt<8>(P, n, p, n0, (cudaStream_t)stream);
+    case 8: return launch_k2_ntt<8>(P, n, batch, p, n0, (cudaStream_t)stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

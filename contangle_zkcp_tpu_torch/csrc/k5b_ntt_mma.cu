@@ -10,11 +10,11 @@
 // for ALL the stages of the port's transform under ZKCP_MXU=1
 // (ops/ntt.py, through ops/mont_mma.py ntt_pass_mma; its plain torch
 // version is ntt_pass_mma_plain).  One launch runs stages s0 .. s0+t-1
-// over the whole array with ntt_tile.cuh's tiles, index maps and launch
-// geometry, the same as K2's: the first pass gathers through the bit
-// reversal and may multiply by pre[src] (g^src of coset_forward), the last
-// may multiply by post[i] or the scalar post[0] (n^-1, n^-1 g^-i), so the
-// output equals the stage loop followed by F.mul.
+// over the whole array (or a batch of B arrays) with ntt_tile.cuh's tiles,
+// index maps and launch geometry, the same as K2's: the first pass gathers
+// through the bit reversal and may multiply by pre[src] (g^src of
+// coset_forward), the last may multiply by post[i] or the scalar post[0]
+// (n^-1, n^-1 g^-i), so the output equals the stage loop followed by F.mul.
 //
 // What bounds it on an H100: the integer pipe, as K2.  A butterfly is one
 // Montgomery product (the W^2 multiply-adds of a*b, the fold of 3W words
@@ -113,17 +113,17 @@ constexpr size_t k5b_ntt_smem(int tile_log) {
 }
 
 template <int W>
-int launch_k5b_ntt(NttPass P, long long n, const uint32_t* p, uint32_t n0, const void* frag,
-                   cudaStream_t s) {
+int launch_k5b_ntt(NttPass P, long long n, long long batch, const uint32_t* p, uint32_t n0,
+                   const void* frag, cudaStream_t s) {
   static const cudaError_t sized = cudaFuncSetAttribute(  // once: above 48 KB is dynamic
       k5b_ntt_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)k5b_ntt_smem<W>(NTT_TILE_LOG));
   if (sized != cudaSuccess) return (int)sized;
-  const int tile_log = ntt_geometry(P, n);
+  const int tile_log = ntt_geometry(P, n, batch);
   if (tile_log < 0) return (int)cudaErrorInvalidValue;
   const int rounds = (1 << (tile_log - 1)) / 32;  // butterflies a stage over 32
   const int warps = rounds < 1 ? 1 : (rounds < K5B_NTT_WARPS ? rounds : K5B_NTT_WARPS);
-  const unsigned blocks = (unsigned)(n >> tile_log);
+  const unsigned blocks = (unsigned)(batch << P.nblk_log);  // B x (n >> tile_log)
   k5b_ntt_kernel<W><<<blocks, 32 * warps, k5b_ntt_smem<W>(tile_log), s>>>(
       P, make_field<W>(p, n0), (const uint4*)frag);
   return (int)cudaGetLastError();
@@ -132,13 +132,13 @@ int launch_k5b_ntt(NttPass P, long long n, const uint32_t* p, uint32_t n0, const
 }  // namespace
 
 extern "C" int k5b_ntt_pass(const void* a, void* out, const void* table, const void* pre,
-                            const void* post, int post_vec, long long n, int s0, int t,
-                            int gather, int nwords, const uint32_t* p, uint32_t n0,
+                            const void* post, int post_vec, long long n, long long batch, int s0,
+                            int t, int gather, int nwords, const uint32_t* p, uint32_t n0,
                             const void* frag, void* stream) {
   const NttPass P{(const int32_t*)a, (int32_t*)out, (const uint32_t*)table,
                   (const uint32_t*)pre, (const uint32_t*)post, post_vec, 0, s0, t, 0, gather};
   switch (nwords) {
-    case 8: return launch_k5b_ntt<8>(P, n, p, n0, frag, (cudaStream_t)stream);
+    case 8: return launch_k5b_ntt<8>(P, n, batch, p, n0, frag, (cudaStream_t)stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -24,7 +24,14 @@
 // (16-bit limbs in int32) is converted once at the load and once at the
 // store.
 //
-// The geometry is decided here only (ops/mont.py passes n, s0, t;
+// A launch may run a batch of B transforms of n elements each, stored one
+// after another ((B, n) elements): blockIdx.x covers B x (n >> tile_log)
+// blocks, transform b = blockIdx.x >> nblk_log; the index maps above are
+// within the transform, a and out are offset by b n elements, and the
+// table, pre and post are shared by the batch.  B = 1 launches exactly as
+// one transform.
+//
+// The geometry is decided here only (ops/mont.py passes n, s0, t and B;
 // tests/test_torch_ntt_plan.py replays it with these constants).
 
 #pragma once
@@ -46,35 +53,41 @@ struct NttPass {
   const uint32_t* post;     // (n, W) or (1, W) words, or null
   int post_vec;             // post indexed by position (else post[0])
   int logn, s0, t, lg, gather;  // logn and lg: set by ntt_geometry
+  int nblk_log;             // log2 of the blocks a transform: set by ntt_geometry
 };
 
 // Checks a pass and sets P.logn and P.lg: a block takes 2^lg groups of 2^t
 // elements, so that it has at least 2^NTT_MIN_BF_LOG butterflies a stage
-// where n allows; t + lg <= NTT_TILE_LOG.  Returns log2 of the tile, or -1
-// for a pass the kernels do not take.
-inline int ntt_geometry(NttPass& P, long long n) {
-  if (n < 2 || (n & (n - 1)) || n > (1LL << 31)) return -1;
+// where n allows; t + lg <= NTT_TILE_LOG; and P.nblk_log.  Returns log2 of
+// the tile, or -1 for a pass the kernels do not take (batch: B >= 1, the
+// grid's B x (n >> tile_log) blocks below 2^31).
+inline int ntt_geometry(NttPass& P, long long n, long long batch) {
+  if (n < 2 || (n & (n - 1)) || n > (1LL << 31) || batch < 1) return -1;
   P.logn = 63 - __builtin_clzll((unsigned long long)n);
   if (P.t < 1 || P.s0 < 0 || P.s0 + P.t > P.logn || P.t > NTT_TILE_LOG ||
       (P.gather && P.s0 != 0))
     return -1;
   const int lg_want = NTT_MIN_BF_LOG + 1 - P.t;
   P.lg = lg_want < 0 ? 0 : (lg_want < P.logn - P.t ? lg_want : P.logn - P.t);
+  P.nblk_log = P.logn - P.t - P.lg;
+  if (batch > ((1LL << 31) - 1) >> P.nblk_log) return -1;
   return P.t + P.lg;
 }
 
 // A block's view of its tile.
 struct NttTile {
   int t, lg, s0, logn, tile, S, cmask;
-  long long g0, lomask;
+  long long g0, lomask, boff;  // boff: the transform's first element
   bool gather;
 
   __device__ explicit NttTile(const NttPass& P)
       : t(P.t), lg(P.lg), s0(P.s0), logn(P.logn), tile(1 << (P.t + P.lg)),
         S((1 << (P.t + P.lg)) + NTT_PAD), cmask((1 << P.lg) - 1),
-        g0((long long)blockIdx.x << P.lg), lomask((1LL << P.s0) - 1), gather(P.gather != 0) {}
+        g0((long long)(blockIdx.x & ((1u << P.nblk_log) - 1)) << P.lg),
+        lomask((1LL << P.s0) - 1),
+        boff((long long)(blockIdx.x >> P.nblk_log) << P.logn), gather(P.gather != 0) {}
 
-  // memory index of slot e
+  // memory index of slot e, within the transform
   __device__ __forceinline__ long long index(int e) const {
     const long long g = g0 + (e & cmask);
     return ((g >> s0) << (s0 + t)) | ((long long)(e >> lg) << s0) | (g & lomask);
@@ -129,7 +142,8 @@ __device__ __forceinline__ void ntt_load_tile(const NttPass& P, const NttTile& T
   constexpr int Q = W / 2;  // int4 (four limbs, two words) an element
   for (int u = threadIdx.x; u < T.tile * Q; u += blockDim.x) {
     const int e = u / Q, q = u % Q;
-    const int4 v = reinterpret_cast<const int4*>(P.a + T.source(T.index(e)) * 2 * W)[q];
+    const long long i = T.boff + T.source(T.index(e));
+    const int4 v = reinterpret_cast<const int4*>(P.a + i * 2 * W)[q];
     sm[2 * q * T.S + e] = (uint32_t)(v.x & 0xffff) | ((uint32_t)v.y << 16);
     sm[(2 * q + 1) * T.S + e] = (uint32_t)(v.z & 0xffff) | ((uint32_t)v.w << 16);
   }
@@ -147,7 +161,7 @@ __device__ __forceinline__ void ntt_store_tile(const NttPass& P, const NttTile& 
     v.y = (int32_t)(w0 >> 16);
     v.z = (int32_t)(w1 & 0xffff);
     v.w = (int32_t)(w1 >> 16);
-    reinterpret_cast<int4*>(P.out + T.index(e) * 2 * W)[q] = v;
+    reinterpret_cast<int4*>(P.out + (T.boff + T.index(e)) * 2 * W)[q] = v;
   }
 }
 

@@ -139,12 +139,12 @@ def lib():
         )
         so.k1_mont_mul.argtypes = [vp, vp, vp, ll, i32, vp, u32, vp]
         so.k2_butterfly.argtypes = [vp, vp, vp, vp, vp, ll, i32, vp, u32, vp]
-        so.k2_ntt_pass.argtypes = [vp] * 5 + [i32, ll] + [i32] * 4 + [vp, u32, vp]
+        so.k2_ntt_pass.argtypes = [vp] * 5 + [i32, ll, ll] + [i32] * 4 + [vp, u32, vp]
         so.k3_sw_add.argtypes = [vp] * 9 + [ll, i32, vp, u32, vp, i32, i32, vp]
         so.k4_field_mul.argtypes = [vp, vp, vp, ll, i32, vp, u32, vp]
         so.k5a_mont_mul_mma.argtypes = [vp, vp, vp, ll, i32, vp, u32, vp, vp]
         so.k5b_butterfly_mma.argtypes = [vp, vp, vp, vp, vp, ll, i32, vp, u32, vp, vp]
-        so.k5b_ntt_pass.argtypes = [vp] * 5 + [i32, ll] + [i32] * 4 + [vp, u32, vp, vp]
+        so.k5b_ntt_pass.argtypes = [vp] * 5 + [i32, ll, ll] + [i32] * 4 + [vp, u32, vp, vp]
         so.k5c_sw_add_mma.argtypes = [vp] * 9 + [ll, i32, vp, u32, vp, i32, i32, vp, vp]
         for name in KERNELS:
             getattr(so, name).restype = ctypes.c_int

@@ -255,18 +255,21 @@ def bit_reverse_perm(n: int, device="cpu") -> torch.Tensor:
 
 
 def ntt_stage(F, a, tw, s: int, bf):
-    """Stage s of the loop on (n, L) limbs, with (n/2, L) twiddle limbs tw:
-    ONE call of `bf` (butterfly, or butterfly_plain) over the stage's n/2
-    (u, v, twiddle) triples, the block structure only in the reshapes."""
-    n, L = a.shape
+    """Stage s of the loop on (N, L) limbs, with (n/2, L) twiddle limbs tw:
+    ONE call of `bf` (butterfly, or butterfly_plain) over the stage's N/2
+    (u, v, twiddle) triples, the block structure only in the reshapes.  N
+    may be a multiple of n: a batch of N/n transforms one after another
+    (a stage's blocks never cross a transform's end)."""
+    N, L = a.shape
+    n = 2 * tw.shape[0]
     m = 1 << (s + 1)
     half = m // 2
-    stw = aligned(tw[:: n // m][:half][None].expand(n // m, half, L).reshape(n // 2, L))
-    blk = a.reshape(n // m, 2, half, L)
-    u = aligned(blk[:, 0].reshape(n // 2, L))
-    v = aligned(blk[:, 1].reshape(n // 2, L))
+    stw = aligned(tw[:: n // m][:half][None].expand(N // m, half, L).reshape(N // 2, L))
+    blk = a.reshape(N // m, 2, half, L)
+    u = aligned(blk[:, 0].reshape(N // 2, L))
+    v = aligned(blk[:, 1].reshape(N // 2, L))
     hi, lo = bf(F, u, v, stw)
-    return torch.stack([hi.reshape(n // m, half, L), lo.reshape(n // m, half, L)], dim=1).reshape(n, L)
+    return torch.stack([hi.reshape(N // m, half, L), lo.reshape(N // m, half, L)], dim=1).reshape(N, L)
 
 
 def ntt_pass_plain(F, a, table, s0: int, t: int, pre=None, post=None, gather: bool = False,
@@ -274,22 +277,29 @@ def ntt_pass_plain(F, a, table, s0: int, t: int, pre=None, post=None, gather: bo
     """Plain torch version of one k2_ntt_pass launch: a * pre (pre indexed by
     source position), the bit-reversal gather, stages s0 .. s0+t-1 through
     butterfly_plain, times post ((n, L/2) by position, or (1, L/2) for all).
-    `mul` and `bf` replace mont_mul_plain and butterfly_plain (the
+    a: (n, L), or a batch (B, n, L) whose transforms share table, pre and
+    post.  `mul` and `bf` replace mont_mul_plain and butterfly_plain (the
     tensor-core pass's twin, ops/mont_mma.py ntt_pass_mma_plain)."""
     mul = mul or mont_mul_plain
     bf = bf or butterfly_plain
-    n = a.shape[0]
-    x = a
+    n, L = a.shape[-2:]
+    B = a.numel() // (n * L)
+    x = a.reshape(B * n, L)
+
+    def scale(x, w):  # w: words by position within a transform, or one row
+        y = unpack_words(w)
+        return mul(F, x, y.repeat(B, 1) if y.shape[0] > 1 else y)
+
     if pre is not None:
-        x = mul(F, x, unpack_words(pre))
+        x = scale(x, pre)
     if gather:
-        x = x.index_select(0, bit_reverse_perm(n, x.device))
+        x = x.reshape(B, n, L).index_select(1, bit_reverse_perm(n, x.device)).reshape(B * n, L)
     tw = unpack_words(table)
     for s in range(s0, s0 + t):
         x = ntt_stage(F, x, tw, s, bf)
     if post is not None:
-        x = mul(F, x, unpack_words(post))
-    return x
+        x = scale(x, post)
+    return x.reshape(a.shape)
 
 
 def _check_words(F, w, rows, what, like):
@@ -303,8 +313,13 @@ def _check_words(F, w, rows, what, like):
 
 
 def check_pass(F, a, table, s0: int, t: int, pre=None, post=None, gather: bool = False):
-    """The operand checks of one NTT pass (K2's and K5b's); returns n."""
-    n = check_operands(F, a)
+    """The operand checks of one NTT pass (K2's and K5b's); a is (n, L) or
+    a batch (B, n, L), B >= 1.  Returns (B, n)."""
+    if a.dim() not in (2, 3) or (a.dim() == 3 and (a.shape[0] < 1 or not a.is_contiguous())):
+        raise ValueError(f"ntt_pass: expected (n, L) or contiguous (B, n, L) limbs, got "
+                         f"{tuple(a.shape)}")
+    B = a.shape[0] if a.dim() == 3 else 1
+    n = check_operands(F, a if a.dim() == 2 else a.view(-1, a.shape[-1])) // B
     logn = n.bit_length() - 1
     if n < 2 or n & (n - 1):
         raise ValueError(f"ntt_pass: n = {n} is not a power of two >= 2")
@@ -317,16 +332,18 @@ def check_pass(F, a, table, s0: int, t: int, pre=None, post=None, gather: bool =
         _check_words(F, post, (1, n), "post", a)
     if a.is_cuda and F.L != 16:
         raise ValueError(f"the NTT pass kernels are built for 16-limb fields only (L = {F.L})")
-    return n
+    return B, n
 
 
 def ntt_pass(F, a, table, s0: int, t: int, pre=None, post=None, gather: bool = False):
     """K2, redesigned: stages s0 .. s0+t-1 of the NTT in one launch of
     k2_ntt_pass (csrc/k2_ntt.cu) for a CUDA array, `ntt_pass_plain` for a
-    CPU one.  a: (n, L) limbs, n a power of two; table: (n/2, L/2) packed
-    twiddle words; pre (n, L/2), post (n or 1, L/2) words; gather (s0 = 0
-    only) reads the input in bit-reversed order.  Returns a new array."""
-    n = check_pass(F, a, table, s0, t, pre, post, gather)
+    CPU one.  a: (n, L) limbs, n a power of two, or a batch (B, n, L) of
+    transforms, all B in the one launch; table: (n/2, L/2) packed twiddle
+    words; pre (n, L/2), post (n or 1, L/2) words, shared by the batch;
+    gather (s0 = 0 only) reads the input in bit-reversed order.  Returns a
+    new array."""
+    B, n = check_pass(F, a, table, s0, t, pre, post, gather)
     if not a.is_cuda:
         return ntt_pass_plain(F, a, table, s0, t, pre, post, gather)
     p, n0 = _words(F)
@@ -334,7 +351,7 @@ def ntt_pass(F, a, table, s0: int, t: int, pre=None, post=None, gather: bool = F
     rc = cuda_lib.lib().k2_ntt_pass(  # the kernel's launcher picks its tile and threads
         a.data_ptr(), out.data_ptr(), table.data_ptr(),
         None if pre is None else pre.data_ptr(), None if post is None else post.data_ptr(),
-        int(post is not None and post.shape[0] == n), n, s0, t, int(gather),
+        int(post is not None and post.shape[0] == n), n, B, s0, t, int(gather),
         F.L // 2, p, n0, cuda_lib.stream_ptr(a),
     )
     cuda_lib.LAUNCHES["k2_ntt_pass"] += 1

@@ -265,8 +265,9 @@ def ntt_pass_mma(F, a, table, s0: int, t: int, pre=None, post=None, gather: bool
     """K5b, redesigned: stages s0 .. s0+t-1 of the NTT in one launch of
     k5b_ntt_pass (csrc/k5b_ntt_mma.cu) for a CUDA array, its multiplies'
     constant products on the tensor cores; `ntt_pass_mma_plain` for a CPU
-    one.  Operands as ops/mont.py ntt_pass.  Returns a new array."""
-    n = check_pass(F, a, table, s0, t, pre, post, gather)
+    one.  Operands as ops/mont.py ntt_pass (a batch (B, n, L) in one
+    launch).  Returns a new array."""
+    B, n = check_pass(F, a, table, s0, t, pre, post, gather)
     if not a.is_cuda:
         return ntt_pass_mma_plain(F, a, table, s0, t, pre, post, gather)
     p, n0 = _words(F)
@@ -274,7 +275,7 @@ def ntt_pass_mma(F, a, table, s0: int, t: int, pre=None, post=None, gather: bool
     rc = cuda_lib.lib().k5b_ntt_pass(  # the kernel's launcher picks its tile and warps
         a.data_ptr(), out.data_ptr(), table.data_ptr(),
         None if pre is None else pre.data_ptr(), None if post is None else post.data_ptr(),
-        int(post is not None and post.shape[0] == n), n, s0, t, int(gather),
+        int(post is not None and post.shape[0] == n), n, B, s0, t, int(gather),
         F.L // 2, p, n0, fragments_hw(F, a.device).data_ptr(), cuda_lib.stream_ptr(a),
     )
     cuda_lib.LAUNCHES["k5b_ntt_pass"] += 1

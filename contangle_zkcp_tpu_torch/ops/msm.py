@@ -288,9 +288,10 @@ class MSM:
         return acc
 
     # ---------------------------------------------------------- phases
-    def _bucket_sums(self, points, order, start, cnt, sgn):
-        """Every non-empty (window, lane) run summed on device.
-        Returns (sums batch, window of each run, lane of each run)."""
+    def _bucket_runs(self, order, start, cnt, sgn):
+        """The schedule's non-empty (window, lane) runs, flattened: (gather
+        indices, run lengths, negations or None, window of each run, lane
+        of each run), host arrays."""
         flat = cnt.reshape(-1)
         nz = np.flatnonzero(flat)
         seg_len = flat[nz].astype(np.int64)
@@ -304,8 +305,14 @@ class MSM:
         rows = seg_k[run_of]
         idx = order[rows, pos]
         neg = sgn[rows, pos] != 0 if sgn is not None else None
+        return idx, seg_len, neg, seg_k, nz % self.nb
+
+    def _bucket_sums(self, points, order, start, cnt, sgn):
+        """Every non-empty (window, lane) run summed on device.
+        Returns (sums batch, window of each run, lane of each run)."""
+        idx, seg_len, neg, seg_k, seg_lane = self._bucket_runs(order, start, cnt, sgn)
         sums = self.segment_sums(points, idx, seg_len, neg)
-        return sums, seg_k, nz % self.nb
+        return sums, seg_k, seg_lane
 
     def _weighted_groups(self, sums, seg_k, seg_lane):
         """T_kj = sum of the runs of window k whose weight has bit j set,

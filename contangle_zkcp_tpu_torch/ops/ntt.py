@@ -10,7 +10,9 @@ memory; under `ZKCP_MXU=1`, of `ops/mont_mma.py ntt_pass_mma` (K5b's
 k5b_ntt_pass, the multiplies' constant products on the tensor cores).
 The first pass gathers through the bit reversal and applies the coset
 powers of `coset_forward`; the last applies n^-1 (`inverse`) or n^-1 g^-i
-(`coset_inverse`).  `NTT.stage_route` keeps the one-stage route (one
+(`coset_inverse`).  `forward_batched` and `inverse_batched` run a
+batch (B, n, L) of transforms, each pass one launch for the whole batch.
+`NTT.stage_route` keeps the one-stage route (one
 `ops/mont.py butterfly` call a stage, the scalings as `F.mul`) as the
 yardstick the passes are timed and checked against.
 
@@ -147,6 +149,22 @@ class NTT:
     def inverse(self, a):
         """Evaluations -> coefficients."""
         return self._run("inverse", a)
+
+    def _batch(self, a):
+        if a.dim() != 3 or a.shape[1] != self.n:
+            raise ValueError(f"expected a (B, {self.n}, L) batch, got {tuple(a.shape)}")
+        return a.contiguous()
+
+    def forward_batched(self, a):
+        """(B, n, L) -> (B, n, L): the DFT along axis 1 (natural order), each
+        pass of the plan ONE launch for all B transforms (the four-step
+        NTT's columns and rows, parallel/ntt_sharded.py)."""
+        return self._passes(self._batch(a), self._tw_fwd_w)
+
+    def inverse_batched(self, a):
+        """(B, n, L) -> (B, n, L): the inverse DFT along axis 1, times n^-1
+        (fused into the last pass)."""
+        return self._passes(self._batch(a), self._tw_inv_w, post=self._n_inv_w)
 
     # ------------------------------------------------------------ coset ops
     @lru_cache(maxsize=4)

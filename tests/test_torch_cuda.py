@@ -3,7 +3,8 @@ their plain torch twins on the card, at awkward sizes (empty, one element,
 odd counts, a ragged last warp) and through the wrappers' operand checks;
 K2's NTT passes (k2_ntt_pass) and K5b's (k5b_ntt_pass, ZKCP_MXU=1) against
 their twins pass by pass, and whole transforms against the stage loop and
-each other, from n = 2 to 2^15; K5a on edge values (0, 1, p - 1, p - 2);
+each other, from n = 2 to 2^15, and batches of transforms (B x n, one
+launch a pass) against the batched twins and one launch a transform; K5a on edge values (0, 1, p - 1, p - 2);
 the multiplies and butterflies also at W = 24 (BW6-761 Fq), the point adds
 also over the Pasta curves (the strict arithmetic of csrc/fp_lazy.cuh).  Needs an NVIDIA Hopper GPU and nvcc; skips
 elsewhere.  Run on the card (this file imports no JAX, so the suite's
@@ -290,6 +291,39 @@ def test_k5b_ntt_pass_equals_twin_k2_and_stage_loop(card, monkeypatch, name, g, 
         assert torch.equal(res, x) and torch.equal(res, k2)
         assert torch.equal(res, ntt.stage_route(op, a, g))
         monkeypatch.delenv("ZKCP_MXU")
+
+
+@pytest.mark.parametrize("B,n", [(512, 512), (3, 4096), (2, 1 << 15), (5, 2)])
+@pytest.mark.parametrize("kernel", ["k2_ntt_pass", "k5b_ntt_pass"])
+def test_batched_ntt_pass_equals_twin_and_single_launches(card, monkeypatch, kernel, B, n):
+    """A batch (B, n, L) of transforms, every pass ONE launch, equal to the
+    batched twin and to B launches on one transform each (coset_forward's
+    pre and inverse's post shared by the batch); forward_batched and
+    inverse_batched launch once a pass of the plan."""
+    run, plain = ((mont.ntt_pass, mont.ntt_pass_plain) if kernel == "k2_ntt_pass"
+                  else (mont_mma.ntt_pass_mma, mont_mma.ntt_pass_mma_plain))
+    F = tfi.bls12_381_fr()
+    ntt = NTT(F, n, device=card)
+    a = rand(F, B * n, 29).to(card).reshape(B, n, F.L)
+    for op in ("forward", "coset_forward", "inverse"):
+        table, pre, post = ntt.pass_operands(op, 7)
+        x, last = a, len(ntt.plan) - 1
+        for i, (s0, t) in enumerate(ntt.plan):
+            kw = dict(pre=pre if i == 0 else None, post=post if i == last else None, gather=i == 0)
+            before = cuda_lib.LAUNCHES[kernel]
+            got = run(F, x, table, s0, t, **kw)
+            assert cuda_lib.LAUNCHES[kernel] == before + 1
+            assert torch.equal(got, plain(F, x, table, s0, t, **kw)), (op, s0, t)
+            one = torch.stack([run(F, x[b].contiguous(), table, s0, t, **kw) for b in range(B)])
+            assert torch.equal(got, one), (op, s0, t)
+            x = got
+    if kernel == "k5b_ntt_pass":
+        monkeypatch.setenv("ZKCP_MXU", "1")
+    before = cuda_lib.LAUNCHES[kernel]
+    fwd = ntt.forward_batched(a)
+    assert torch.equal(ntt.inverse_batched(fwd), a)
+    assert cuda_lib.LAUNCHES[kernel] == before + 2 * len(ntt.plan)
+    assert torch.equal(fwd[B - 1], ntt.forward(a[B - 1]))
 
 
 def test_k5b_ntt_pass_operand_checks(card):

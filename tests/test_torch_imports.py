@@ -10,7 +10,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "contangle_zkcp_tpu_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_prove.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_prove.py",
+                                       ROOT / "scripts" / "parallel_ranks.py"]
 FORBIDDEN = ("jax", "jaxlib", "contangle_zkcp_tpu")
 
 
@@ -114,8 +115,23 @@ def test_port_covers_the_slice():
         "groth16/aggregate.py",
         "utils/profiling.py",
         "circuits/poe_shape.py",
+        # parallel/: the sharded MSM, the four-step and sharded NTT, the
+        # mesh fold pipeline
+        "parallel/__init__.py",
+        "parallel/mesh.py",
+        "parallel/msm_sharded.py",
+        "parallel/ntt_sharded.py",
+        "parallel/fold_pipeline.py",
     ):
         assert (PORT / rel).exists(), rel
+
+
+def test_ntt_runs_batches():
+    """The four-step NTT's local transforms: ops/ntt.py's batched entry
+    points, as the JAX package's NTT has them."""
+    from contangle_zkcp_tpu_torch.ops.ntt import NTT
+
+    assert callable(NTT.forward_batched) and callable(NTT.inverse_batched)
 
 
 def _entry_points():
@@ -128,6 +144,7 @@ def _entry_points():
     from contangle_zkcp_tpu_torch.groth16.ipa_vec import VectorIPA
     from contangle_zkcp_tpu_torch.ops.ntt import NTT
     from contangle_zkcp_tpu_torch.ops.merkle import build_tree_device
+    from contangle_zkcp_tpu_torch.parallel.mesh import make_mesh
     from contangle_zkcp_tpu_torch.plonkish.ipa import IPA
     from contangle_zkcp_tpu_torch.plonkish.prover import PlonkSystem
     from contangle_zkcp_tpu_torch.plonkish.quotient_device import QuotientDevice
@@ -167,6 +184,7 @@ def _entry_points():
         FoldingScheme.__init__,
         VectorIPA.__init__,
         batch_verify,
+        make_mesh,
     ]
 
 
@@ -197,7 +215,7 @@ def test_cli_device_defaults_to_cuda():
         assert cli.parser().parse_args(argv).device == "cuda", argv[0]
 
 
-@pytest.mark.parametrize("idx", range(28))
+@pytest.mark.parametrize("idx", range(29))
 def test_entry_points_default_to_cuda(idx):
     fn = _entry_points()[idx]
     assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__

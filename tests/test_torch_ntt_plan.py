@@ -106,6 +106,28 @@ def test_kernel_index_maps_keep_butterflies_in_one_tile(n):
             replay_pass(n, s0, min(t, logn - s0))
 
 
+@pytest.mark.parametrize("B,n", [(512, 512), (4, 1 << 18), (3, 1024), (5, 2)])
+def test_batched_grid_covers_every_transform_once(B, n):
+    """csrc/ntt_tile.cuh's batched grid: B x (n >> tile_log) blocks, block
+    k taking tile k mod 2^nblk_log of transform k >> nblk_log, whose
+    elements lie b n further on; every element of the batch is read and
+    written by exactly one slot of one block, and every block's slots stay
+    in its own transform.  The launch limit: B << nblk_log below 2^31."""
+    logn = n.bit_length() - 1
+    for s0, t in pass_plan(n):
+        lg, _, per = pass_geometry(n, s0, t)
+        nblk_log = logn - t - lg
+        assert per == 1 << nblk_log
+        k = np.arange(B << nblk_log, dtype=np.int64)[:, None]
+        e = np.arange(1 << (t + lg), dtype=np.int64)[None, :]
+        g = ((k & ((1 << nblk_log) - 1)) << lg) + (e & ((1 << lg) - 1))
+        idx = ((g >> s0) << (s0 + t)) | ((e >> lg) << s0) | (g & ((1 << s0) - 1))
+        assert idx.min() >= 0 and idx.max() < n
+        flat = ((k >> nblk_log) << logn) + idx
+        assert np.array_equal(np.sort(flat.ravel()), np.arange(B * n))
+        assert B <= ((1 << 31) - 1) >> nblk_log
+
+
 def k5b_rounds(n, s0, t):
     """csrc/k5b_ntt_mma.cu's launch and rounds for one pass: the warps of a
     block (launch_k5b_ntt), and for each warp-uniform loop (the tile's
